@@ -1,0 +1,139 @@
+"""Draft-propose / target-verify machinery of the port's PipeDec engine.
+
+``ModelBundle`` wraps a ``Transformer`` with the step functions the engines
+call (prefill, decode, tree verify, commit, cache construction) and counts
+its calls by name in ``calls``, the hook that tests and the chip smoke run
+use to tie kernel launches to model steps.
+
+Token selection at commit time follows the paper: greedy takes the argmax
+of the target's logits at the accepted node; stochastic samples from the
+target's temperature / top-k / top-p filtered distribution with a
+``torch.Generator`` (it cannot replay ``jax.random``, so only greedy runs
+match the JAX package token for token).  Either way the emitted token comes
+from the target alone, so the output distribution is lossless.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import tree as tree_lib
+from repro_torch.models import transformer as tf
+from repro_torch.models.transformer import Transformer
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    """Sampling controls: temperature (0 => greedy), top-k, top-p."""
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+
+def select_token(logits: torch.Tensor, sp: SamplingParams,
+                 generator: Optional[torch.Generator] = None) -> int:
+    """logits [V] -> token id (the first maximum when greedy)."""
+    if sp.temperature <= 0.0:
+        return int(torch.argmax(logits))
+    logits = logits.float() / sp.temperature
+    if sp.top_k:
+        kth = torch.topk(logits, sp.top_k).values[-1]
+        logits = logits.masked_fill(logits < kth, -float("inf"))
+    if sp.top_p < 1.0:
+        sorted_logits = torch.sort(logits, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, -1), -1)
+        cutoff_ix = min(int((cum < sp.top_p).sum()), logits.shape[0] - 1)
+        logits = logits.masked_fill(logits < sorted_logits[cutoff_ix],
+                                    -float("inf"))
+    probs = torch.softmax(logits, -1)
+    return int(torch.multinomial(probs, 1, generator=generator))
+
+
+class ModelBundle:
+    """A model plus the step functions the engines drive.
+
+    ``calls`` counts prefill / decode / tree_verify / commit calls by name.
+    """
+
+    def __init__(self, model: Transformer):
+        self.model = model
+        self.cfg = model.cfg
+        self.calls = collections.Counter()
+
+    @property
+    def device(self) -> torch.device:
+        """The device the model runs on."""
+        return self.model.device
+
+    def prefill(self, tokens, cache):
+        """(last-position logits [B,V], cache) for prompts [B,S]."""
+        self.calls["prefill"] += 1
+        return tf.prefill(self.model, tokens, cache)
+
+    def decode(self, token, cache, cache_len):
+        """(logits [B,V], cache) for one token per row at ``cache_len``."""
+        self.calls["decode"] += 1
+        return tf.decode_step(self.model, token, cache, cache_len)
+
+    def tree_verify(self, node_tokens, node_positions, tree_mask, cache,
+                    cache_len, tree_caches, tree_write_index):
+        """(logits [B,n,V], tree_caches) for one tree layer per row."""
+        self.calls["tree_verify"] += 1
+        return tf.tree_verify_step(self.model, node_tokens, node_positions,
+                                   tree_mask, cache, cache_len, tree_caches,
+                                   tree_write_index)
+
+    def commit(self, cache, tree_caches, node_idx: int, model_len: int):
+        """Move tree row ``node_idx`` into the model cache at ``model_len``."""
+        self.calls["commit"] += 1
+        return tf.commit_tree_node(cache, tree_caches, node_idx, model_len)
+
+    def init_cache(self, batch: int, max_len: int):
+        """Zeroed model KV cache on the model's device."""
+        return tf.init_cache(self.cfg, batch, max_len, device=self.device)
+
+    def init_tree_caches(self, batch: int, capacity: int):
+        """Zeroed tree KV caches on the model's device."""
+        return tf.init_tree_caches(self.cfg, batch, capacity,
+                                   device=self.device)
+
+
+@torch.no_grad()
+def remap_tree_caches(tree_caches, index_map: torch.Tensor, capacity: int):
+    """Compact tree-cache rows with the tree's prune permutation, in place.
+
+    Rows whose ``index_map`` entry is -1 are dropped (pushed past the live
+    prefix; stale rows are never attended).  Buffers carry ``capacity + w``
+    rows (slack for fixed-width layer writes); the slack rows map to -1.
+    """
+    length = tree_caches[0]["k"].shape[1]
+    im = torch.cat([index_map.long(),
+                    torch.full((length - capacity,), -1, dtype=torch.long)])
+    ar = torch.arange(length)
+    # inverse permutation: g[new] = old, dropped rows pushed to the end
+    g = torch.argsort(torch.where(im >= 0, im, length + ar), stable=True)
+    g = g.to(tree_caches[0]["k"].device)
+    for layer in tree_caches:
+        for buf in layer.values():
+            buf.copy_(buf.index_select(1, g))
+    return tree_caches
+
+
+@torch.no_grad()
+def draft_candidates(logits: torch.Tensor, valid: torch.Tensor, c: int):
+    """Per-node top-``c`` candidates from draft logits.
+
+    logits [w, V] on the model's device; valid [w] bool (CPU).  Returns CPU
+    (cand_tokens [w, c] int32, cand_logprobs [w, c] f32) with invalid rows
+    at -1e30.  A stable descending sort keeps ``jax.lax.top_k``'s order
+    among equal log-probabilities (lower token id first).
+    """
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    top_lp, top_tok = torch.sort(logp, dim=-1, descending=True, stable=True)
+    top_lp, top_tok = top_lp[:, :c].cpu(), top_tok[:, :c].cpu()
+    top_lp = torch.where(valid[:, None], top_lp,
+                         torch.tensor(tree_lib.NEG_INF, dtype=torch.float32))
+    return top_tok.to(torch.int32), top_lp

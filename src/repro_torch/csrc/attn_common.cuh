@@ -1,0 +1,263 @@
+// Shared pieces of the port's two fp32 attention kernels
+// (flash_attention_lse.cu, tree_block_attention.cu).
+//
+// Work split.  A CTA owns a set of "rows": (query, query-head) pairs that
+// share one KV head (GQA), so every K/V tile it stages in shared memory is
+// read from device memory once for the whole group.  Each warp owns
+// kRowsPerWarp rows.  K/V stream through shared memory kBK keys at a time;
+// in a tile, lane j scores key j against the warp's rows, the warp reduces
+// max and sum with shuffles, and the P.V product gives each lane
+// kDimsPerLane output columns (head_dim <= 128).  Arithmetic is fp32 FMA
+// on the CUDA cores: no TF32 and no tensor-core MMA, so the results follow
+// the fp32 reference up to summation order.
+//
+// Masking follows the JAX package's Pallas kernels exactly: a masked score
+// is -1e30 and its probability is zeroed, the running max starts at -1e30,
+// and the final normaliser is floored at 1e-30, so a row with no valid key
+// returns o = 0, m = -1e30, l = 0 (weight 0 when the two halves of tree
+// attention are merged).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace attn {
+
+constexpr int kBK = 32;           // keys per shared-memory tile, one per lane
+constexpr int kRowsPerWarp = 4;   // (query, head) rows a warp owns
+constexpr int kDimsPerLane = 4;   // output columns per lane
+constexpr int kMaxHeadDim = 32 * kDimsPerLane;
+constexpr int kMaxRows = 16;      // rows per CTA
+constexpr int kThreads = 32 * kMaxRows / kRowsPerWarp;  // 4 warps at most
+constexpr float kNegInf = -1e30f;
+constexpr float kMinL = 1e-30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// Running softmax state of one warp's rows.  m and l are replicated over
+// the lanes; acc[r][c] is column lane + 32 * c of row r.
+struct Rows {
+  float m[kRowsPerWarp];
+  float l[kRowsPerWarp];
+  float acc[kRowsPerWarp][kDimsPerLane];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kDimsPerLane; ++c) acc[r][c] = 0.f;
+    }
+  }
+};
+
+// Shared-memory size of a CTA with `nwarps` warps: q rows, then the K tile
+// (rows padded by one float so lane j reading key j hits its own bank),
+// then the V tile.
+__host__ __device__ inline size_t smem_bytes(int nwarps, int hd) {
+  return sizeof(float) * ((size_t)nwarps * kRowsPerWarp * hd +
+                          (size_t)kBK * (hd + 1) + (size_t)kBK * hd);
+}
+
+// Stage this CTA's rows of q, pre-multiplied by `scale` (the order the
+// Pallas kernels use).  Row r is query q0 + r / rep of head g * rep + r % rep;
+// rows past `rows` are zero so idle rows of the last warp stay finite.
+__device__ __forceinline__ void stage_q(const float* __restrict__ q,
+                                        long long qsb, long long qsh,
+                                        long long qsn, int b, int g, int q0,
+                                        int rows, int rows_cap, int rep,
+                                        int hd, float scale, float* qs) {
+  for (int i = threadIdx.x; i < rows_cap * hd; i += blockDim.x) {
+    const int r = i / hd;
+    const int d = i - r * hd;
+    float x = 0.f;
+    if (r < rows) {
+      const int qi = q0 + r / rep;
+      const int h = g * rep + r % rep;
+      x = q[b * qsb + h * qsh + qi * qsn + d] * scale;
+    }
+    qs[i] = x;
+  }
+}
+
+// Loads a thread keeps in flight per tensor while staging a tile.
+constexpr int kStage = 8;
+
+// Copy keys [t0, t0 + tl) of one (batch, kv-head) K and V into shared
+// memory.  k/v point at key 0; keys are `ksl` floats apart, head_dim
+// contiguous, so consecutive threads read consecutive addresses.  With
+// `vec4` (16-byte aligned rows, head_dim a multiple of 4) each thread reads
+// 16 bytes at a time, and issues up to kStage reads of K and of V before
+// its first shared-memory store, so their latencies overlap.
+__device__ __forceinline__ void load_tile(const float* __restrict__ k,
+                                          const float* __restrict__ v,
+                                          long long ksl, int t0, int tl,
+                                          int hd, bool vec4, float* ks,
+                                          float* vs) {
+  const int width = vec4 ? 4 : 1;
+  const int per_row = hd / width;
+  const int total = tl * per_row;
+  for (int base = threadIdx.x; base < total; base += kStage * blockDim.x) {
+    float4 kr[kStage], vr[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) {
+        const int j = i / per_row;
+        const int d = (i - j * per_row) * width;
+        const long long gi = (long long)(t0 + j) * ksl + d;
+        if (vec4) {
+          kr[u] = *reinterpret_cast<const float4*>(k + gi);
+          vr[u] = *reinterpret_cast<const float4*>(v + gi);
+        } else {
+          kr[u].x = k[gi];
+          vr[u].x = v[gi];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) {
+        const int j = i / per_row;
+        const int d = (i - j * per_row) * width;
+        float* kd = ks + j * (hd + 1) + d;
+        float* vd = vs + j * hd + d;
+        kd[0] = kr[u].x;
+        vd[0] = vr[u].x;
+        if (vec4) {
+          kd[1] = kr[u].y; kd[2] = kr[u].z; kd[3] = kr[u].w;
+          vd[1] = vr[u].y; vd[2] = vr[u].z; vd[3] = vr[u].w;
+        }
+      }
+    }
+  }
+}
+
+// Whether K/V rows of one (batch, kv-head) can be read 16 bytes at a time.
+inline bool can_vec4(const void* k, const void* v, long long ksb,
+                     long long ksh, long long ksl, int hd) {
+  const unsigned long long a =
+      (unsigned long long)k | (unsigned long long)v;
+  return a % 16 == 0 && hd % 4 == 0 && ksb % 4 == 0 && ksh % 4 == 0 &&
+         ksl % 4 == 0;
+}
+
+// Fold one staged tile of `tl` keys into a warp's running softmax.
+// `valid(r, j)` says whether the warp's row r may attend key j of the tile.
+template <class Valid>
+__device__ __forceinline__ void update(Rows& st, const float* qs,
+                                       const float* ks, const float* vs,
+                                       int hd, int tl, Valid valid) {
+  const int lane = threadIdx.x & 31;
+  float s[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
+  if (lane < tl && hd % 4 == 0) {
+    // q rows are 16-byte aligned in shared memory: one broadcast float4
+    // read per row and four dims (same summation order as the scalar loop)
+    const float* kr = ks + lane * (hd + 1);
+    for (int d = 0; d < hd; d += 4) {
+      const float k0 = kr[d], k1 = kr[d + 1], k2 = kr[d + 2], k3 = kr[d + 3];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + r * hd + d);
+        s[r] = fmaf(qv.x, k0, s[r]);
+        s[r] = fmaf(qv.y, k1, s[r]);
+        s[r] = fmaf(qv.z, k2, s[r]);
+        s[r] = fmaf(qv.w, k3, s[r]);
+      }
+    }
+  } else if (lane < tl) {
+    const float* kr = ks + lane * (hd + 1);
+    for (int d = 0; d < hd; ++d) {
+      const float kd = kr[d];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) s[r] = fmaf(qs[r * hd + d], kd, s[r]);
+    }
+  }
+  float p[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const bool ok = lane < tl && valid(r, lane);
+    const float sv = ok ? s[r] : kNegInf;
+    const float mn = fmaxf(st.m[r], warp_max(sv));
+    p[r] = ok ? expf(sv - mn) : 0.f;
+    const float alpha = expf(st.m[r] - mn);
+    st.l[r] = st.l[r] * alpha + warp_sum(p[r]);
+    st.m[r] = mn;
+#pragma unroll
+    for (int c = 0; c < kDimsPerLane; ++c) st.acc[r][c] *= alpha;
+  }
+  for (int j = 0; j < tl; ++j) {
+    float pj[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) pj[r] = __shfl_sync(kFull, p[r], j);
+    const float* vr = vs + j * hd;
+#pragma unroll
+    for (int c = 0; c < kDimsPerLane; ++c) {
+      const int d = lane + 32 * c;
+      if (d < hd) {
+        const float vd = vr[d];
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) st.acc[r][c] = fmaf(pj[r], vd, st.acc[r][c]);
+      }
+    }
+  }
+}
+
+// Write a warp's finished rows: o = acc / max(l, 1e-30) into o [B,H,n,hd],
+// and the softmax stats into m, l [B,H,n].
+__device__ __forceinline__ void store_rows(const Rows& st, int row0, int rows,
+                                           int b, int g, int q0, int rep,
+                                           int H, int n, int hd,
+                                           float* __restrict__ o,
+                                           float* __restrict__ m,
+                                           float* __restrict__ l) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = row0 + r;
+    if (row >= rows) continue;
+    const int qi = q0 + row / rep;
+    const int h = g * rep + row % rep;
+    const long long orow = ((long long)b * H + h) * n + qi;
+    const float den = fmaxf(st.l[r], kMinL);
+#pragma unroll
+    for (int c = 0; c < kDimsPerLane; ++c) {
+      const int d = lane + 32 * c;
+      if (d < hd) o[orow * hd + d] = st.acc[r][c] / den;
+    }
+    if (lane == 0) {
+      m[orow] = st.m[r];
+      l[orow] = st.l[r];
+    }
+  }
+}
+
+// Raise a kernel's dynamic shared-memory limit when a launch needs more
+// than the default 48 KB (a launch over the limit is refused and never
+// runs).  The limit only grows, so the attribute is set at the first launch
+// of each larger size and not again (nor while a CUDA graph captures).
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  static size_t granted = 48 * 1024;
+  if (bytes <= granted) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) granted = bytes;
+  return err;
+}
+
+}  // namespace attn

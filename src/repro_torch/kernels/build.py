@@ -1,0 +1,109 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface, ``build/repro_torch_kernels/<name>-<hash>.so`` under the
+repository root.  The hash covers the sources, the shared headers and the
+compiler flags, so an edit rebuilds and an unchanged tree reuses the
+library.  Nothing is built at import: the first launch builds what it
+needs, and ``build`` compiles a set of kernels with one nvcc each, all
+started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS = ("flash_attention_lse", "tree_block_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Loaded launch functions by kernel name.  A loaded shared library lives as
+# long as the process, so this cache is process-wide by nature.
+_LAUNCHERS: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the shared library of kernel ``name`` lives once built."""
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found is None and CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        found = str(cand) if cand.exists() else None
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are built from "
+            "src/repro_torch/csrc at first use and need the CUDA toolkit "
+            "(put nvcc on PATH or set CUDA_HOME)")
+    return found
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every kernel of ``names`` whose library is missing, one nvcc
+    process each, all running at once.  Returns nvcc's report (ptxas
+    registers, shared memory, spills) by kernel name; raises with the
+    compiler's output if any build fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        reports[name] = text
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{text}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def launcher(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C launch function ``<name>_launch``, built and loaded on first
+    use.  It returns a ``cudaError_t``; 0 means the launch was accepted."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[name] = fn
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")

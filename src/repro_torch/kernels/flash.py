@@ -1,0 +1,167 @@
+"""Flash attention with log-sum-exp statistics: CUDA kernel + plain twin.
+
+Replaces the JAX package's Pallas kernel ``repro/kernels/flash.py``
+(``flash_attention_lse``).  One kernel serves three call sites: the
+committed-prefix half of tree verification, decode (n = 1) and causal
+prefill.  It returns the normalised output plus the softmax stats
+``(m, l)``, so partial results over different KV sources merge exactly
+(``ops.combine_lse``).
+
+Layouts follow the JAX function: ``q [B,H,n,hd]``, ``k/v [B,KV,L,hd]``.
+The port's caches are ``[B,L,KV,hd]``; callers pass ``cache.transpose(1,
+2)``, a view, and the kernel reads it by stride, so no transposed copy is
+made.  Stats come back as ``[B,H,n]`` (the Pallas kernel replicates them
+over 128 lanes, a TPU tiling artefact).
+
+What bounds the kernel on an H100: bytes, and at the main path's sizes
+(B = 1, a few hundred keys) launch latency.  See
+``csrc/flash_attention_lse.cu`` for the design.
+
+Dispatch: a CPU tensor goes to ``flash_attention_lse_plain``; a CUDA
+tensor goes to the kernel, or the wrapper raises.  ``launches`` on the
+wrapper counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+MIN_L = 1e-30
+# (query, head) rows per CTA: the kernel takes max(1, ROWS // rep) queries
+# of all rep heads of a KV head per CTA
+ROWS = 16
+
+_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+_ARGTYPES = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64, _P, _P,
+             _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+             _I32, _F32, _P]
+
+
+def rows_i32(x, b: int, device) -> torch.Tensor:
+    """Per-batch-row int32 vector ``[b]`` on ``device`` from an int, a
+    sequence or a tensor holding one entry or ``b`` entries."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    t = t.to(device=device, dtype=torch.int32).reshape(-1)
+    if t.numel() == 1:
+        return t.expand(b).contiguous()
+    if t.numel() != b:
+        raise ValueError(f"expected 1 or {b} row values, got {t.numel()}")
+    return t.contiguous()
+
+
+def qpos_rows(qpos, b: int, n: int, device) -> Optional[torch.Tensor]:
+    """Query positions as int32 ``[b, n]`` from ``[n]`` or ``[b, n]``."""
+    if qpos is None:
+        return None
+    t = qpos if isinstance(qpos, torch.Tensor) else torch.as_tensor(qpos)
+    t = t.to(device=device, dtype=torch.int32)
+    if t.dim() == 1:
+        t = t[None]
+    return t.expand(b, n).contiguous()
+
+
+def valid_mask(b, n, length, kv_len, qpos, causal, window, device):
+    """[B, n, L] bool: which keys each query may attend."""
+    kpos = torch.arange(length, device=device)
+    valid = (kpos[None, :] < kv_len[:, None].long())[:, None, :]
+    valid = valid.expand(b, n, length)
+    if causal or window > 0:
+        qp = (qpos if qpos is not None
+              else torch.zeros(b, n, dtype=torch.int32, device=device))
+        qp = qp.long()[..., None]
+        if causal:
+            valid = valid & (kpos <= qp)
+        if window > 0:
+            valid = valid & (kpos > qp - window)
+    return valid
+
+
+def masked_softmax_lse(qs, k, v, valid):
+    """The kernels' arithmetic on whole tensors: qs [B,KV,rep,n,hd] already
+    scaled, k/v [B,KV,L,hd], valid broadcastable to [B,KV,rep,n,L].
+    Masked scores are -1e30 and their probabilities zero; l is floored at
+    1e-30 in the division only.  Returns o, m, l shaped like qs[..., :]."""
+    s = torch.einsum("bgrnd,bgld->bgrnl", qs, k.float())
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]),
+                    torch.zeros((), device=s.device))
+    l = p.sum(-1)
+    o = torch.einsum("bgrnl,bgld->bgrnd", p, v.float())
+    return o / l.clamp_min(MIN_L)[..., None], m, l
+
+
+def flash_attention_lse_plain(q, k, v, kv_len, qpos=None, *, scale: float,
+                              window: int = 0, causal: bool = False):
+    """Plain PyTorch version of the kernel (same masking semantics).
+    ``kv_len`` int32 [B], ``qpos`` int32 [B,n] or None."""
+    b, h, n, hd = q.shape
+    kvh, length = k.shape[1], k.shape[2]
+    rep = h // kvh
+    qs = (q.float() * scale).reshape(b, kvh, rep, n, hd)
+    valid = valid_mask(b, n, length, kv_len, qpos, causal, window, q.device)
+    o, m, l = masked_softmax_lse(qs, k, v, valid[:, None, None])
+    return o.reshape(b, h, n, hd), m.reshape(b, h, n), l.reshape(b, h, n)
+
+
+def _launch(q, k, v, kv_len, qpos, *, scale, window, causal):
+    b, h, n, hd = q.shape
+    kvh, length = k.shape[1], k.shape[2]
+    if q.dtype != torch.float32 or k.dtype != torch.float32 or \
+            v.dtype != torch.float32:
+        raise TypeError("flash_attention_lse kernel takes fp32 q/k/v")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
+        raise ValueError("q/k/v need a contiguous head dim and k/v one "
+                         "shared set of strides")
+    if h % kvh or hd > 128 or h // kvh > ROWS:
+        raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
+    if (causal or window > 0) and qpos is None:
+        raise ValueError("causal or window masking needs qpos")
+    rep = h // kvh
+    o = torch.empty((b, h, n, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    fn = build.launcher("flash_attention_lse", _ARGTYPES)
+    err = fn(q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+             k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
+             k.stride(2), kv_len.data_ptr(),
+             None if qpos is None else qpos.data_ptr(),
+             o.data_ptr(), m.data_ptr(), l.data_ptr(),
+             b, h, kvh, n, length, hd, max(1, ROWS // rep), int(causal),
+             int(window), float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention_lse", err)
+    flash_attention_lse.launches += 1
+    return o, m, l
+
+
+def flash_attention_lse(q, k, v, kv_len, qpos=None, *,
+                        scale: Optional[float] = None, window: int = 0,
+                        causal: bool = False):
+    """q [B,H,n,hd]; k/v [B,KV,L,hd] (views are read by stride); kv_len an
+    int or per-row [B] valid prefix; qpos [n] or [B,n] absolute query
+    positions (needed for ``causal`` and ``window``).
+
+    Returns (o [B,H,n,hd], m [B,H,n], l [B,H,n]), all fp32.
+    """
+    b, h, n, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kv = rows_i32(kv_len, b, q.device)
+    qp = qpos_rows(qpos, b, n, q.device)
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, kv, qp, scale=scale,
+                                         window=window, causal=causal)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no flash_attention_lse for {q.device}")
+    return _launch(q, k, v, kv, qp, scale=scale, window=window,
+                   causal=causal)
+
+
+flash_attention_lse.launches = 0

@@ -1,0 +1,60 @@
+"""Plain PyTorch oracles of the attention paths, as the JAX package's
+``repro/kernels/ref.py`` writes them: masked scores are -inf and the
+softmax is taken over the concatenated sources.  They hold the kernels'
+plain versions to the reference semantics; the int8 and paged oracles
+arrive with their slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _repeat_kv(x, rep: int):
+    return x if rep == 1 else torch.repeat_interleave(x, rep, dim=1)
+
+
+def tree_attention_ref(q, k_past, v_past, k_tree, v_tree, tree_mask,
+                       past_len, *, scale=None):
+    """Two-level tree attention (paper Algorithm 1), dense reference.
+
+    q [B,H,n,hd]; k/v_past [B,KV,Lmax,hd] (valid rows < past_len, an int or
+    per-row [B]); k/v_tree [B,KV,T,hd]; tree_mask [n,T] or [B,n,T] bool.
+    Returns [B,H,n,hd].
+    """
+    b, h, n, hd = q.shape
+    rep = h // k_past.shape[1]
+    k_past, v_past = _repeat_kv(k_past, rep), _repeat_kv(v_past, rep)
+    k_tree, v_tree = _repeat_kv(k_tree, rep), _repeat_kv(v_tree, rep)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    lp = torch.einsum("bhnd,bhsd->bhns", q, k_past).float() * scale
+    lt = torch.einsum("bhnd,bhsd->bhns", q, k_tree).float() * scale
+    lmax = k_past.shape[2]
+    plen = torch.as_tensor(past_len, device=q.device).reshape(-1).expand(b)
+    past_ok = torch.arange(lmax, device=q.device)[None, None, None, :] < \
+        plen[:, None, None, None]
+    tmask = tree_mask if tree_mask.dim() == 3 else tree_mask[None]
+    lp = lp.masked_fill(~past_ok, -math.inf)
+    lt = lt.masked_fill(~tmask[:, None], -math.inf)
+    probs = torch.softmax(torch.cat([lp, lt], dim=-1), dim=-1)
+    return torch.einsum("bhns,bhsd->bhnd", probs[..., :lmax], v_past) + \
+        torch.einsum("bhns,bhsd->bhnd", probs[..., lmax:], v_tree)
+
+
+def decode_attention_ref(q, k, v, kv_len, *, window: int = 0, scale=None):
+    """Flash-decode reference: q [B,H,1,hd] vs cache k/v [B,KV,Lmax,hd]
+    with ``kv_len`` (int or [B]) valid rows and an optional sliding
+    window.  Returns [B,H,1,hd]."""
+    b, h, _, hd = q.shape
+    rep = h // k.shape[1]
+    k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    logits = torch.einsum("bhnd,bhsd->bhns", q, k).float() * scale
+    pos = torch.arange(k.shape[2], device=q.device)[None, None, None, :]
+    kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1, 1, 1)
+    ok = pos < kv_len
+    if window:
+        ok &= pos > kv_len - 1 - window
+    probs = torch.softmax(logits.masked_fill(~ok, -math.inf), dim=-1)
+    return torch.einsum("bhns,bhsd->bhnd", probs, v)

@@ -1,0 +1,108 @@
+"""Where a PipeDec timestep's time goes on the card.
+
+Builds the paper's pair at published widths (the target cut to 8 layers,
+one per stage of the 8-stage pipeline, as in ``chip_smoke.py``; seeded
+random weights), runs one request through ``PipeDecEngine`` and, after
+WARMUP timesteps, times STEPS timesteps twice: once plainly (host clock
+around work that ends in a synchronise) and once under ``torch.profiler``.
+Prints JSON lines:
+wall time per timestep, the card's busy time per timestep (sum of kernel
+and copy durations from the trace), its idle share and device time by
+kernel name; writes the Chrome trace to ``--trace``.  The idle share is
+taken against the plain wall time, since the profiler itself slows the
+host; the share against the profiled wall time is printed beside it.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import pipedec_pair
+from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
+from repro_torch.core.speculative import ModelBundle
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tf
+
+TARGET_LAYERS, STAGES, PROMPT_LEN, WARMUP, STEPS = 8, 8, 64, 8, 16
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main(argv=None) -> None:
+    """Profile STEPS PipeDec timesteps at full width."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.profile_serve")
+    ap.add_argument("--trace", default="build/profile/profile_serve_trace.json")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device("cuda")
+    tcfg = dataclasses.replace(pipedec_pair.TARGET,
+                               num_layers=TARGET_LAYERS)
+    target = ModelBundle(tf.init_model(tcfg, seed=0, device=dev))
+    draft = ModelBundle(tf.init_model(pipedec_pair.DRAFT, seed=1,
+                                      device=dev))
+    eng = PipeDecEngine(target, draft,
+                        PipeDecConfig(n_stages=STAGES, width=8, branch=4),
+                        max_len=512)
+    prompt = np.random.default_rng(0).integers(
+        0, tcfg.vocab_size, size=PROMPT_LEN)
+    n_steps = WARMUP + 2 * STEPS
+    st = eng.init_state(prompt, max_new_tokens=n_steps,
+                        max_timesteps=n_steps + 1)
+    for _ in range(WARMUP):
+        eng.step(st)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        eng.step(st)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            eng.step(st)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            acc = by_name[ev.name]
+            acc[0] += ev.time_range.elapsed_us()
+            acc[1] += 1
+    busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / STEPS
+    _emit({"profile": "timestep", "device": torch.cuda.get_device_name(0),
+           "target_layers": TARGET_LAYERS, "stages": STAGES,
+           "steps": STEPS, "wall_ms": wall_ms,
+           "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms,
+           "idle_share_profiled": 1.0 - busy_ms / prof_wall_ms,
+           "kernel_launches_per_step": sum(v[1] for v in by_name.values())
+           / STEPS})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (us, count) in top:
+        _emit({"profile": "kernel", "name": name[:120],
+               "ms_per_step": us / 1e3 / STEPS,
+               "calls_per_step": count / STEPS,
+               "us_per_call": us / count})
+    Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,74 @@
+"""Serving CLI of the port: build the smoke-size target + draft and run a
+batch of requests through the ServingEngine in pp or pipedec mode.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pipedec
+
+runs the smoke-size pair on the card; ``--device cpu`` runs it on the
+CPU.  ``-h`` lists the flags.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Dict, Tuple
+
+import numpy as np
+
+from repro_torch import configs as cfg_reg
+from repro_torch.core.pipedec import PipeDecConfig
+from repro_torch.core.speculative import ModelBundle
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.serving import Request, Result, ServingEngine
+
+
+def build_bundle(arch: str, *, seed: int,
+                 device: DeviceLike = None) -> ModelBundle:
+    """Init the smoke-size config of one arch with seeded random weights
+    on ``device`` and wrap it as a ``ModelBundle``."""
+    cfg = cfg_reg.get_config(arch, smoke=True)
+    return ModelBundle(tf.init_model(cfg, seed=seed,
+                                     device=resolve_device(device)))
+
+
+def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
+    """CLI entry: build target + draft, serve ``--requests`` seeded
+    prompts and print one line per request.  Returns the engine (its
+    bundles carry the call counts) and the results by uid."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--mode", choices=["pp", "pipedec"], default="pipedec")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--stages", type=int, default=4)
+    ap.add_argument("--width", type=int, default=8)
+    ap.add_argument("--branch", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=3,
+                    help="pp mode: rows per lockstep batch")
+    args = ap.parse_args(argv)
+
+    target = build_bundle("pipedec-target", seed=0, device=args.device)
+    draft = None
+    if args.mode == "pipedec":
+        draft = build_bundle("pipedec-draft", seed=1, device=args.device)
+    pcfg = PipeDecConfig(n_stages=args.stages, width=args.width,
+                         branch=args.branch)
+    engine = ServingEngine(target, draft, mode=args.mode,
+                           max_batch=args.slots, pipedec=pcfg)
+    rng = np.random.default_rng(0)
+    for uid in range(args.requests):
+        prompt = rng.integers(0, target.cfg.vocab_size,
+                              size=8).astype(np.int64)
+        engine.submit(Request(uid, prompt, args.new_tokens))
+    results = engine.run()
+    for uid, res in sorted(results.items()):
+        extra = ""
+        if res.stats is not None:
+            extra = (f" acc={res.stats.acceptance:.2f}"
+                     f" tps={res.stats.tokens_per_timestep:.2f}")
+        print(f"req {uid}: {res.tokens.tolist()[:10]}... "
+              f"{res.latency_s * 1e3:.1f}ms{extra}")
+    return engine, results
+
+
+if __name__ == "__main__":
+    main()

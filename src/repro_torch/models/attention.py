@@ -1,0 +1,169 @@
+"""Grouped-query attention with KV caches and the two-level (model + tree)
+cache path of paper Algorithm 1: the dense GQA subset of the JAX package's
+``repro/models/attention.py``.
+
+Shapes follow the JAX package: x [B, S, d_model], q [B, S, H, hd],
+k/v [B, S, KV, hd], caches ``{"k", "v"}`` of [B, L, KV, hd] per layer.
+
+All three attention call sites go through the port's kernels
+(``kernels.ops``): causal prefill and decode through
+``flash_attention_lse``, tree verification through ``flash_attention_lse``
+over the committed prefix plus ``tree_block_attention`` over the tree
+buffer, merged by ``combine_lse``.  The kernels read the caches in place
+through transposed views.
+
+Caches are updated in place (the JAX functions return new arrays): a
+cache is a preallocated buffer that each write fills at given rows, which
+keeps one copy of every cache on the card.  Writes are checked on the
+host to fit; nothing is clamped or dropped.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, dense_init_, param
+
+
+class Attention(nn.Module):
+    """GQA projections: w_q [d,H,hd], w_k/w_v [d,KV,hd], w_o [H,hd,d]."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        self.w_q = param((d, h, hd), device)
+        self.w_k = param((d, kv, hd), device)
+        self.w_v = param((d, kv, hd), device)
+        self.w_o = param((h, hd, d), device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """LeCun normal weights (w_o's fan-in is the head dim, as in JAX)."""
+        d, _, hd = self.w_q.shape
+        for w in (self.w_q, self.w_k, self.w_v):
+            dense_init_(w, d, gen)
+        dense_init_(self.w_o, hd, gen)
+
+
+def _proj(x, w):
+    """x [B,S,d] @ w [d,heads,hd] -> [B,S,heads,hd]."""
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _out(p: Attention, out):
+    """Attention output [B,S,H,hd] through w_o -> [B,S,d]."""
+    return out.flatten(-2) @ p.w_o.reshape(-1, p.w_o.shape[-1])
+
+
+def project_qkv(p: Attention, cfg: ModelConfig, x, positions):
+    """q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE applied to q and k."""
+    q = apply_rope(_proj(x, p.w_q), positions, cfg.rope_theta)
+    k = apply_rope(_proj(x, p.w_k), positions, cfg.rope_theta)
+    return q, k, _proj(x, p.w_v)
+
+
+def gqa_attend(q, k, v, mask, *, scale: Optional[float] = None):
+    """Reference GQA over explicit masks, with the JAX ``gqa_attend`` fill
+    (the fp32 minimum): q [B,Sq,H,hd], k/v [B,Sk,KV,hd], mask
+    [B|1, 1, Sq, Sk] bool.  The port's model runs the kernels instead; this
+    is the semantics they are held to."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, sq, kvh, rep, hd)
+    logits = torch.einsum("bqgrk,bsgk->bgrqs", qg, k).float() * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, :, None],
+                                    torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bgrqs,bsgk->bqgrk", probs, v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+# --------------------------------------------------------------------------
+# KV caches
+# --------------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Zeroed fp32 {"k", "v"} [batch, max_len, KV, hd]."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def cache_write_rows(cache, updates, starts: Sequence[int]):
+    """Per-row write: batch row b of every update lands at rows
+    [starts[b], starts[b]+n) (one start broadcasts), in place."""
+    for name, u in updates.items():
+        buf = cache[name]
+        b, n, length = u.shape[0], u.shape[1], buf.shape[1]
+        rows = list(starts) * b if len(starts) == 1 else list(starts)
+        if len(rows) != b or min(rows) < 0 or max(rows) + n > length:
+            raise IndexError(f"cache write of {n} rows at {rows} does not "
+                             f"fit {length} rows")
+        if len(set(rows)) == 1:
+            buf[:, rows[0]:rows[0] + n] = u
+        else:
+            for i, s in enumerate(rows):
+                buf[i, s:s + n] = u[i]
+    return cache
+
+
+def _heads_first(t):
+    """[B,S,heads,hd] -> a [B,heads,S,hd] view (no copy)."""
+    return t.transpose(1, 2)
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
+def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
+                 cache=None, window: int = 0):
+    """Causal attention over a whole prompt (prefill); fills ``cache`` rows
+    [0, S) when given.  positions [B,S].  Returns (out [B,S,d], cache)."""
+    q, k, v = project_qkv(p, cfg, x, positions)
+    if cache is not None:
+        cache_write_rows(cache, {"k": k, "v": v}, [0])
+    out = ops.prefill_attention(_heads_first(q), _heads_first(k),
+                                _heads_first(v), positions, window=window)
+    return _out(p, _heads_first(out)), cache
+
+
+def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,
+                cache_len: Sequence[int], kv_len, *, window: int = 0):
+    """One-token decode: x [B,1,d] at ``position`` [B] (device); the new
+    K/V row lands at ``cache_len[b]`` (host ints) and the token attends
+    ``kv_len`` [B] = cache_len + 1 rows per batch row."""
+    q, k, v = project_qkv(p, cfg, x, position[:, None])
+    cache_write_rows(cache, {"k": k, "v": v}, cache_len)
+    out = ops.decode_attention(_heads_first(q), _heads_first(cache["k"]),
+                               _heads_first(cache["v"]), kv_len,
+                               window=window)
+    return _out(p, _heads_first(out)), cache
+
+
+def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
+                     model_cache, model_len, tree_cache,
+                     tree_write_index: Sequence[int], tree_mask,
+                     window: int = 0):
+    """Attention for one new tree layer (paper Algorithm 1).
+
+    x [B,n,d] the layer's hidden states at ``positions`` [B,n]; model_cache
+    holds ``model_len`` [B] (device int32) committed rows per batch row; the
+    layer's K/V land in ``tree_cache`` at ``tree_write_index[b]`` (host
+    ints); tree_mask [B,n,T] is each node's ancestor-or-self mask against
+    the whole tree buffer.  Returns (out [B,n,d], tree_cache).
+    """
+    q, k, v = project_qkv(p, cfg, x, positions)
+    cache_write_rows(tree_cache, {"k": k, "v": v}, tree_write_index)
+    out = ops.tree_attention(
+        _heads_first(q), _heads_first(model_cache["k"]),
+        _heads_first(model_cache["v"]), _heads_first(tree_cache["k"]),
+        _heads_first(tree_cache["v"]), tree_mask, model_len,
+        window=window, qpos=positions)
+    return _out(p, _heads_first(out)), tree_cache

@@ -1,0 +1,111 @@
+"""Shared building blocks: RMSNorm, RoPE, the SwiGLU MLP, embeddings.
+
+Weights keep the JAX package's shapes and layouts (``w_gate [d, ff]``,
+``table [V, d]``), so the weight bridge copies arrays as they are.  The
+port's own initialisers draw from the same distributions as the JAX
+package's (``repro/models/layers.py``), from a ``torch.Generator``; they do
+not draw the same values.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+
+def param(shape, device) -> nn.Parameter:
+    """An uninitialised fp32 weight that takes no gradient."""
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
+                        requires_grad=False)
+
+
+def dense_init_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """LeCun normal over the input dimension, in place."""
+    w.normal_(generator=gen).mul_(1.0 / math.sqrt(max(fan_in, 1)))
+
+
+def embed_init_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """Normal with standard deviation 0.02, in place."""
+    w.normal_(generator=gen).mul_(0.02)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm with a learned per-channel scale."""
+
+    def __init__(self, dim: int, eps: float, device):
+        super().__init__()
+        self.eps = eps
+        self.scale = param((dim,), device)
+
+    def reset_parameters(self) -> None:
+        """Scale of ones."""
+        self.scale.fill_(1.0)
+
+    def forward(self, x):
+        """Normalise the last axis of ``x``."""
+        return rmsnorm(self.scale, x, self.eps)
+
+
+def rmsnorm(scale, x, eps: float = 1e-6):
+    """x * rsqrt(mean(x^2) + eps) * scale, in fp32."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    """Rotary frequencies of the first half of the head dim, fp32."""
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x [..., S, heads, hd]; positions broadcastable to [..., S].  Rotates
+    by half-split (first half against second half), not interleaved."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs          # [..., S, hd/2]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """SwiGLU feed-forward block: silu(x W_gate) * (x W_up) W_down."""
+
+    def __init__(self, d_model: int, d_ff: int, device):
+        super().__init__()
+        self.w_gate = param((d_model, d_ff), device)
+        self.w_up = param((d_model, d_ff), device)
+        self.w_down = param((d_ff, d_model), device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """LeCun normal weights."""
+        dense_init_(self.w_gate, self.w_gate.shape[0], gen)
+        dense_init_(self.w_up, self.w_up.shape[0], gen)
+        dense_init_(self.w_down, self.w_down.shape[0], gen)
+
+    def forward(self, x):
+        """Apply the block to the last axis of ``x``."""
+        return mlp(self, x)
+
+
+def mlp(p: MLP, x):
+    """SwiGLU MLP with the weights of ``p``."""
+    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+def embed(table, tokens):
+    """Rows of ``table [V, d]`` for integer ``tokens``."""
+    return table[tokens]
+
+
+def unembed(table, x):
+    """Logits ``x @ table.T``."""
+    return x @ table.T

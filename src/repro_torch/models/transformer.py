@@ -1,0 +1,264 @@
+"""Dense LLaMA-style decoder: the dense subset of the JAX package's
+``repro/models/transformer.py``.
+
+``Transformer`` holds the weights in ``nn.Module``s with the JAX layouts
+(one ``DecoderLayer`` per layer in an ``nn.ModuleList``, where the JAX
+package stacks the layers along a leading axis).  The model is run by
+plain functions, as in the JAX package:
+
+  * ``prefill``          - a whole prompt, filling the model KV cache;
+  * ``decode_step``      - one token per batch row against the cache;
+  * ``tree_verify_step`` - one prediction-tree layer against the two-level
+                           cache (model cache + tree cache, paper 3.4.2);
+  * ``commit_tree_node`` - move one verified tree node's K/V into the
+                           model cache (two-level cache sync, paper 3.4.3).
+
+Caches are lists with one ``{"k", "v"}`` dict of [B, L, KV, hd] per layer,
+updated in place (see ``attention``).  Row offsets (cache lengths, tree
+write offsets) are host ints, so every write is checked to fit before it
+is made; bounds that the kernels read are built once per step on the
+model's device.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (MLP, RMSNorm, embed, embed_init_,
+                                       mlp, param, unembed)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a configuration outside the port's dense subset."""
+    bad = [name for name, on in (
+        ("mla", cfg.mla is not None), ("moe", cfg.moe is not None),
+        ("ssm", cfg.ssm is not None), ("rglru", cfg.rglru is not None),
+        ("encoder", cfg.encoder is not None), ("qkv_bias", cfg.qkv_bias),
+        ("quant", bool(cfg.quant)), ("prefix_tokens", cfg.prefix_tokens > 0),
+        (f"mlp_variant={cfg.mlp_variant}", cfg.mlp_variant != "swiglu"),
+        (f"family={cfg.family}", cfg.family != "dense")) if on]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense swiglu decoders only, not "
+            f"{', '.join(bad)}")
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm attention + SwiGLU MLP block."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.mixer = attn.Attention(cfg, device)
+        self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Draw the layer's weights from ``gen``."""
+        self.norm1.reset_parameters()
+        self.mixer.reset_parameters(gen)
+        self.norm2.reset_parameters()
+        self.ffn.reset_parameters(gen)
+
+
+class Embedding(nn.Module):
+    """Token table [V, d] (also the tied LM head)."""
+
+    def __init__(self, vocab: int, d_model: int, device):
+        super().__init__()
+        self.table = param((vocab, d_model), device)
+
+
+class Transformer(nn.Module):
+    """Embedding, decoder layers, final norm and LM head (tied to the
+    embedding when ``cfg.tie_embeddings``).  Weights are uninitialised
+    until ``reset_parameters`` or the weight bridge fills them."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, device)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else Embedding(cfg.vocab_size, cfg.d_model, device))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+                                    for _ in range(cfg.num_layers))
+
+    @property
+    def device(self) -> torch.device:
+        """The device the weights live on."""
+        return self.embed.table.device
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Draw every weight from ``gen`` (the JAX package's distributions,
+        not its values)."""
+        embed_init_(self.embed.table, gen)
+        self.final_norm.reset_parameters()
+        if self.lm_head is not None:
+            embed_init_(self.lm_head.table, gen)
+        for layer in self.layers:
+            layer.reset_parameters(gen)
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               device: DeviceLike = None) -> Transformer:
+    """A model with weights drawn on ``device`` (CUDA unless the caller asks
+    for the CPU) from a generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        model.reset_parameters(gen)
+    return model
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: DeviceLike = None) -> List[dict]:
+    """Model KV cache: one zeroed {"k", "v"} [batch, max_len, KV, hd] per
+    layer."""
+    dev = resolve_device(device)
+    return [attn.init_kv_cache(cfg, batch, max_len, dev)
+            for _ in range(cfg.num_layers)]
+
+
+def init_tree_caches(cfg: ModelConfig, batch: int, capacity: int, *,
+                     device: DeviceLike = None) -> List[dict]:
+    """Tree (level-2) KV caches: ``capacity`` rows per layer."""
+    return init_cache(cfg, batch, capacity, device=device)
+
+
+# --------------------------------------------------------------------------
+# forward passes
+# --------------------------------------------------------------------------
+def host_rows(x, b: int) -> List[int]:
+    """Per-batch-row host ints from an int, a sequence or an array of one
+    entry or ``b`` entries."""
+    vals = [int(v) for v in np.asarray(
+        x.cpu() if isinstance(x, torch.Tensor) else x).reshape(-1)]
+    if len(vals) == 1:
+        return vals * b
+    if len(vals) != b:
+        raise ValueError(f"expected 1 or {b} row values, got {len(vals)}")
+    return vals
+
+
+def _tokens(model: Transformer, tokens):
+    return torch.as_tensor(tokens, device=model.device).long()
+
+
+def _run_layers(model: Transformer, x, attend):
+    """Residual blocks; ``attend(i, mixer, h)`` is layer i's attention."""
+    for i, layer in enumerate(model.layers):
+        h = layer.norm1(x)
+        x = x + attend(i, layer.mixer, h)
+        x = x + mlp(layer.ffn, layer.norm2(x))
+    return x
+
+
+def _logits(model: Transformer, x):
+    x = model.final_norm(x)
+    head = model.embed if model.lm_head is None else model.lm_head
+    return unembed(head.table, x)
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens, cache):
+    """Fill the model cache from position 0 with ``tokens`` [B,S]; returns
+    (last-position logits [B,V], cache)."""
+    cfg = model.cfg
+    tokens = _tokens(model, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=model.device).expand(b, s)
+    x = embed(model.embed.table, tokens)
+
+    def attend(i, mixer, h):
+        y, _ = attn.attn_forward(mixer, cfg, h, positions, cache=cache[i],
+                                 window=cfg.sliding_window)
+        return y
+
+    x = _run_layers(model, x, attend)
+    return _logits(model, x[:, -1]), cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, token, cache, cache_len):
+    """token [B] -> (logits [B,V], cache); row b's token sits at position
+    ``cache_len[b]`` (an int broadcasts) and is written there."""
+    cfg = model.cfg
+    token = _tokens(model, token).reshape(-1)
+    b = token.shape[0]
+    rows = host_rows(cache_len, b)
+    position = torch.as_tensor(rows, device=model.device)
+    kv_len = (position + 1).to(torch.int32)
+    x = embed(model.embed.table, token[:, None])
+
+    def attend(i, mixer, h):
+        y, _ = attn.attn_decode(mixer, cfg, h, position, cache[i], rows,
+                                kv_len, window=cfg.sliding_window)
+        return y
+
+    x = _run_layers(model, x, attend)
+    return _logits(model, x[:, 0]), cache
+
+
+@torch.no_grad()
+def tree_verify_step(model: Transformer, node_tokens, node_positions,
+                     tree_mask, cache, cache_len, tree_caches,
+                     tree_write_index):
+    """Verify one tree layer (PipeDec 3.4.2).
+
+    node_tokens [B,n] token ids of the new layer (padded); node_positions
+    [B,n] absolute positions; tree_mask [B,n,T] (or [n,T]) per-row
+    ancestor mask against the whole tree buffer; cache_len [B] committed
+    prefix per row and tree_write_index [B] tree-buffer write offset per
+    row (ints broadcast).  Returns (logits [B,n,V], tree_caches).
+    """
+    cfg = model.cfg
+    dev = model.device
+    node_tokens = _tokens(model, node_tokens)
+    b, n = node_tokens.shape
+    positions = torch.as_tensor(node_positions, device=dev).long()
+    positions = positions.reshape(-1, n).expand(b, n)
+    mask = torch.as_tensor(tree_mask, device=dev, dtype=torch.bool)
+    mask = (mask if mask.dim() == 3 else mask[None]).expand(b, n,
+                                                            mask.shape[-1])
+    model_len = torch.as_tensor(host_rows(cache_len, b), device=dev,
+                                dtype=torch.int32)
+    write_at = host_rows(tree_write_index, b)
+    x = embed(model.embed.table, node_tokens)
+
+    def attend(i, mixer, h):
+        y, _ = attn.attn_tree_verify(
+            mixer, cfg, h, positions, model_cache=cache[i],
+            model_len=model_len, tree_cache=tree_caches[i],
+            tree_write_index=write_at, tree_mask=mask,
+            window=cfg.sliding_window)
+        return y
+
+    x = _run_layers(model, x, attend)
+    return _logits(model, x), tree_caches
+
+
+@torch.no_grad()
+def commit_tree_node(cache, tree_caches, node_idx: int, model_len: int):
+    """Two-level cache sync (paper 3.4.3): copy tree row ``node_idx`` of
+    every layer's tree cache into its model cache at row ``model_len``, in
+    place.  Returns the model cache."""
+    for layer_cache, layer_tree in zip(cache, tree_caches):
+        for name, buf in layer_cache.items():
+            if not 0 <= model_len < buf.shape[1]:
+                raise IndexError(f"commit at row {model_len} does not fit "
+                                 f"{buf.shape[1]} rows")
+            buf[:, model_len] = layer_tree[name][:, node_idx]
+    return cache

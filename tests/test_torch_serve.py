@@ -1,0 +1,102 @@
+"""The port's serving front door and CLI on the CPU: ``pp`` and
+``pipedec`` modes against plain autoregressive decoding and against the
+JAX package's ``ServingEngine`` on the same weights."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.speculative import ModelBundle as JaxBundle
+from repro.models.config import ModelConfig as JaxModelConfig
+from repro.serving import Request as JaxRequest
+from repro.serving import ServingEngine as JaxServingEngine
+from repro_torch.checkpoint import from_jax_params
+from repro_torch.configs import pipedec_pair
+from repro_torch.core.baselines import generate_autoregressive
+from repro_torch.core.pipedec import PipeDecConfig
+from repro_torch.core.speculative import ModelBundle
+from repro_torch.launch import serve
+from repro_torch.serving import Request, ServingEngine
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return (serve.build_bundle("pipedec-target", seed=0, device="cpu"),
+            serve.build_bundle("pipedec-draft", seed=1, device="cpu"))
+
+
+def _requests(lengths, new_tokens, seed=0):
+    rng = np.random.default_rng(seed)
+    return [Request(uid, rng.integers(0, 512, n), new_tokens[uid])
+            for uid, n in enumerate(lengths)]
+
+
+@pytest.mark.parametrize("mode", ["pp", "pipedec"])
+def test_modes_match_autoregressive(pair, mode):
+    """Mixed prompt lengths (pp buckets them) and token budgets: every
+    request's tokens equal its own autoregressive decode."""
+    target, draft = pair
+    reqs = _requests([5, 8, 5, 3], [6, 4, 9, 5])
+    eng = ServingEngine(target, draft, mode=mode, max_batch=2,
+                        pipedec=PipeDecConfig(n_stages=3, width=4, branch=2))
+    for r in reqs:
+        eng.submit(r)
+    results = eng.run()
+    assert sorted(results) == [0, 1, 2, 3] and not eng.queue
+    for r in reqs:
+        want = generate_autoregressive(target, r.prompt, r.max_new_tokens)
+        np.testing.assert_array_equal(results[r.uid].tokens, want)
+        assert results[r.uid].latency_s > 0
+        if mode == "pipedec":
+            assert results[r.uid].stats.commits >= r.max_new_tokens
+
+
+def test_pp_matches_jax_serving_engine():
+    """Batched pp decode with the same weights in both packages."""
+    from test_torch_model import numpy_params
+    cfg = pipedec_pair.DRAFT_SMOKE
+    params = numpy_params(cfg, 2)
+    jcfg = JaxModelConfig(**{f.name: getattr(cfg, f.name)
+                             for f in dataclasses.fields(cfg)})
+    port = ServingEngine(ModelBundle(from_jax_params(cfg, params,
+                                                     device="cpu")),
+                         mode="pp", max_batch=3)
+    ref = JaxServingEngine(JaxBundle(jax.tree.map(jnp.asarray, params), jcfg),
+                           mode="pp", max_batch=3)
+    for r in _requests([6, 6, 4], [5, 7, 3], seed=3):
+        port.submit(r)
+        ref.submit(JaxRequest(r.uid, r.prompt.astype(np.int32),
+                              r.max_new_tokens))
+    got, want = port.run(), ref.run()
+    for uid in want:
+        np.testing.assert_array_equal(got[uid].tokens, want[uid].tokens)
+
+
+def test_pipedec_db_is_not_ported(pair):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(*pair, mode="pipedec-db")
+    with pytest.raises(ValueError):
+        ServingEngine(pair[0], None, mode="pipedec")
+
+
+@pytest.mark.parametrize("mode", ["pp", "pipedec"])
+def test_cli_on_cpu(mode, capsys):
+    engine, results = serve.main(["--mode", mode, "--device", "cpu",
+                                  "--requests", "2", "--new-tokens", "5",
+                                  "--stages", "2"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(results) == 2 and len(lines) == 2
+    assert engine.mode == mode and (engine.draft is None) == (mode == "pp")
+    assert all(len(r.tokens) == 6 for r in results.values())
+    assert ("acc=" in lines[0]) == (mode == "pipedec")
