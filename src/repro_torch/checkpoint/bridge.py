@@ -12,6 +12,11 @@ where every leaf under "stack" carries a leading layer axis.  The port's
 own ``init_model`` draws from the same distributions with a
 ``torch.Generator`` but not the same values; only this bridge makes the
 two packages compute the same function.
+
+A quantized pytree (the JAX package's ``ModelBundle.quantize()``) holds
+each projection as ``{"q8": int8, "scale": f32}``, both with the leading
+layer axis; it fills a model of the same config with ``quant="int8"``,
+whose projections are ``QuantWeight``s, value for value.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import QuantWeight
 from repro_torch.models.transformer import Transformer
 
 _LAYER_KEYS = {"norm1": ("scale",), "mixer": ("w_q", "w_k", "w_v", "w_o"),
@@ -32,12 +38,37 @@ def _copy(dst: torch.Tensor, src, what: str) -> None:
     arr = np.asarray(src)
     if tuple(arr.shape) != tuple(dst.shape):
         raise ValueError(f"{what}: shape {arr.shape} != {tuple(dst.shape)}")
-    dst.copy_(torch.from_numpy(np.array(arr, np.float32)))
+    if dst.dtype == torch.int8:
+        if arr.dtype != np.int8:
+            raise ValueError(f"{what}: int8 values expected, got {arr.dtype}")
+        dst.copy_(torch.from_numpy(np.array(arr)))
+    else:
+        dst.copy_(torch.from_numpy(np.array(arr, np.float32)))
+
+
+def _layer_leaf(dst, stacked, i: int, n_layers: int, what: str) -> None:
+    """Copy layer ``i`` of a stacked leaf (an array, or a quantized
+    ``{"q8", "scale"}`` dict) into ``dst`` (a parameter or a
+    ``QuantWeight``)."""
+    quant = isinstance(stacked, Mapping) and "q8" in stacked
+    if quant != isinstance(dst, QuantWeight):
+        raise ValueError(f"{what}: an {'int8' if quant else 'fp32'} leaf "
+                         f"for an {'fp32' if quant else 'int8'} weight")
+    pairs = (((dst.q8, stacked["q8"], ".q8"),
+              (dst.scale, stacked["scale"], ".scale")) if quant
+             else ((dst, stacked, ""),))
+    for tensor, arr, suffix in pairs:
+        arr = np.asarray(arr)
+        if arr.shape[0] != n_layers:
+            raise ValueError(f"stack has {arr.shape[0]} layers, config "
+                             f"{n_layers}")
+        _copy(tensor, arr[i], what + suffix)
 
 
 @torch.no_grad()
 def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
-    """Fill ``model`` in place from a JAX dense-model parameter pytree."""
+    """Fill ``model`` in place from a JAX dense-model parameter pytree
+    (fp32, or quantized for a ``quant="int8"`` model)."""
     cfg = model.cfg
     extra = set(params) - {"embed", "final_norm", "lm_head", "stack"}
     if extra:
@@ -55,16 +86,13 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
         for part, names in _LAYER_KEYS.items():
             mod = getattr(layer, part)
             for name in names:
-                stacked = np.asarray(unit[part][name])
-                if stacked.shape[0] != cfg.num_layers:
-                    raise ValueError(f"stack has {stacked.shape[0]} layers, "
-                                     f"config {cfg.num_layers}")
-                _copy(getattr(mod, name), stacked[i],
-                      f"layers[{i}].{part}.{name}")
+                _layer_leaf(getattr(mod, name), unit[part][name], i,
+                            cfg.num_layers, f"layers[{i}].{part}.{name}")
     return model
 
 
 def from_jax_params(cfg: ModelConfig, params: Mapping, *,
                     device: DeviceLike = None) -> Transformer:
-    """A port model on ``device`` holding the JAX package's weights."""
+    """A port model on ``device`` holding the JAX package's weights (give
+    ``cfg.quant="int8"`` for a quantized pytree)."""
     return load_jax_params(Transformer(cfg, resolve_device(device)), params)

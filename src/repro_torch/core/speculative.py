@@ -21,8 +21,15 @@ from typing import Optional
 import torch
 
 from repro_torch.core import tree as tree_lib
+from repro_torch.kernels.quant import quantize_weight
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import Transformer
+
+# projection-weight name -> number of leading contraction axes, for the
+# int8 serving path (per-out-channel symmetric quantization).  Everything
+# else (embeddings, norms, the LM head) stays fp32.
+QUANT_WEIGHTS = {"w_q": 1, "w_k": 1, "w_v": 1, "w_o": 2,
+                 "w_gate": 1, "w_up": 1, "w_down": 1}
 
 
 @dataclasses.dataclass
@@ -99,6 +106,35 @@ class ModelBundle:
         """Zeroed tree KV caches on the model's device."""
         return tf.init_tree_caches(self.cfg, batch, capacity,
                                    device=self.device)
+
+    @torch.no_grad()
+    def quantize(self) -> "ModelBundle":
+        """Int8 serving copy: every projection weight of ``QUANT_WEIGHTS``
+        becomes a per-out-channel symmetric int8 ``QuantWeight``, quantized
+        once here, and ``cfg.quant = "int8"`` switches every cache the new
+        bundle builds to the int8 KV layout.  This bundle is left
+        untouched.  The fp32 weights that stay fp32 (embeddings, norms,
+        the LM head) are shared with it, not copied.  Dense models only.
+        """
+        cfg = self.cfg
+        if cfg.quant:
+            raise ValueError(f"{cfg.name} is already quantized ({cfg.quant})")
+        if (cfg.mla is not None or cfg.moe is not None or cfg.ssm is not None
+                or cfg.rglru is not None or cfg.encoder is not None):
+            raise NotImplementedError(
+                f"int8 serving supports dense attention only, not "
+                f"{cfg.name!r}")
+        qmodel = Transformer(dataclasses.replace(cfg, quant="int8"),
+                             torch.device("meta"))
+        for name, w in self.model.named_parameters():
+            path, _, leaf = name.rpartition(".")
+            dst = qmodel.get_submodule(path)
+            if leaf in QUANT_WEIGHTS:
+                qw = getattr(dst, leaf)
+                qw.q8, qw.scale = quantize_weight(w, QUANT_WEIGHTS[leaf])
+            else:
+                setattr(dst, leaf, w)
+        return ModelBundle(qmodel)
 
 
 @torch.no_grad()

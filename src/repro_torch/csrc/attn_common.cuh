@@ -1,4 +1,4 @@
-// Shared pieces of the port's two fp32 attention kernels
+// Shared pieces of the port's two attention kernels
 // (flash_attention_lse.cu, tree_block_attention.cu).
 //
 // Work split.  A CTA owns a set of "rows": (query, query-head) pairs that
@@ -11,6 +11,12 @@
 // on the CUDA cores: no TF32 and no tensor-core MMA, so the results follow
 // the fp32 reference up to summation order.
 //
+// K and V are fp32, or int8 with one fp32 scale per (batch, kv-head, row)
+// (the int8 serving layout).  An int8 row is dequantized as it is staged,
+// float(q) * scale, into the same fp32 shared-memory tile, as the Pallas
+// kernels dequantize a tile before QK^T and PV; everything after the
+// staging is the same code for both.
+//
 // Masking follows the JAX package's Pallas kernels exactly: a masked score
 // is -1e30 and its probability is zeroed, the running max starts at -1e30,
 // and the final normaliser is floored at 1e-30, so a row with no valid key
@@ -19,6 +25,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace attn {
 
@@ -94,18 +101,20 @@ __device__ __forceinline__ void stage_q(const float* __restrict__ q,
 // Loads a thread keeps in flight per tensor while staging a tile.
 constexpr int kStage = 8;
 
-// Copy keys [t0, t0 + tl) of one (batch, kv-head) K and V into shared
-// memory.  k/v point at key 0; keys are `ksl` floats apart, head_dim
-// contiguous, so consecutive threads read consecutive addresses.  With
-// `vec4` (16-byte aligned rows, head_dim a multiple of 4) each thread reads
-// 16 bytes at a time, and issues up to kStage reads of K and of V before
-// its first shared-memory store, so their latencies overlap.
+// Copy keys [t0, t0 + tl) of one (batch, kv-head) fp32 K and V into
+// shared memory.  k/v point at key 0; keys are `ksl` floats apart,
+// head_dim contiguous, so consecutive threads read consecutive addresses.
+// With `vec` (16-byte aligned rows, head_dim a multiple of 4) each thread
+// reads 16 bytes at a time, and issues up to kStage reads of K and of V
+// before its first shared-memory store, so their latencies overlap.  The
+// scale arguments are unused: fp32 rows carry none.
 __device__ __forceinline__ void load_tile(const float* __restrict__ k,
                                           const float* __restrict__ v,
-                                          long long ksl, int t0, int tl,
-                                          int hd, bool vec4, float* ks,
-                                          float* vs) {
-  const int width = vec4 ? 4 : 1;
+                                          const float*, const float*,
+                                          long long ksl, long long, int t0,
+                                          int tl, int hd, bool vec,
+                                          float* ks, float* vs) {
+  const int width = vec ? 4 : 1;
   const int per_row = hd / width;
   const int total = tl * per_row;
   for (int base = threadIdx.x; base < total; base += kStage * blockDim.x) {
@@ -117,7 +126,7 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ k,
         const int j = i / per_row;
         const int d = (i - j * per_row) * width;
         const long long gi = (long long)(t0 + j) * ksl + d;
-        if (vec4) {
+        if (vec) {
           kr[u] = *reinterpret_cast<const float4*>(k + gi);
           vr[u] = *reinterpret_cast<const float4*>(v + gi);
         } else {
@@ -136,7 +145,7 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ k,
         float* vd = vs + j * hd + d;
         kd[0] = kr[u].x;
         vd[0] = vr[u].x;
-        if (vec4) {
+        if (vec) {
           kd[1] = kr[u].y; kd[2] = kr[u].z; kd[3] = kr[u].w;
           vd[1] = vr[u].y; vd[2] = vr[u].z; vd[3] = vr[u].w;
         }
@@ -145,13 +154,94 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ k,
   }
 }
 
-// Whether K/V rows of one (batch, kv-head) can be read 16 bytes at a time.
-inline bool can_vec4(const void* k, const void* v, long long ksb,
-                     long long ksh, long long ksl, int hd) {
+// Four int8 bytes of `w` times `s`: byte b is made an exact float from the
+// bits 0x4B000000 | (b ^ 0x80) (= 2^23 + b + 128) less 2^23 + 128, then
+// multiplied once by the row's scale, as the plain version computes
+// float(q) * scale.
+__device__ __forceinline__ float4 dequant4(uint32_t w, float s) {
+  const uint32_t u = w ^ 0x80808080u;
+  float4 f;
+  f.x = (__int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f) * s;
+  f.y = (__int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f) * s;
+  f.z = (__int_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f) * s;
+  f.w = (__int_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f) * s;
+  return f;
+}
+
+// The int8 twin: keys [t0, t0 + tl) of int8 K and V with their per-row
+// scales (`ksc`/`vsc` point at key 0's scale, keys `ssl` floats apart),
+// dequantized into the same fp32 tiles.  With `vec` (16-byte aligned rows,
+// head_dim a multiple of 16) each thread reads 16 int8 values at a time; a
+// target row (head_dim 128) is 8 such reads, a draft row (64) is 4.
+__device__ __forceinline__ void load_tile(const int8_t* __restrict__ k,
+                                          const int8_t* __restrict__ v,
+                                          const float* __restrict__ ksc,
+                                          const float* __restrict__ vsc,
+                                          long long ksl, long long ssl,
+                                          int t0, int tl, int hd, bool vec,
+                                          float* ks, float* vs) {
+  if (!vec) {
+    for (int i = threadIdx.x; i < tl * hd; i += blockDim.x) {
+      const int j = i / hd;
+      const int d = i - j * hd;
+      const long long gi = (long long)(t0 + j) * ksl + d;
+      const long long si = (long long)(t0 + j) * ssl;
+      ks[j * (hd + 1) + d] = (float)k[gi] * ksc[si];
+      vs[j * hd + d] = (float)v[gi] * vsc[si];
+    }
+    return;
+  }
+  const int per_row = hd / 16;
+  const int total = tl * per_row;
+  for (int base = threadIdx.x; base < total; base += kStage * blockDim.x) {
+    uint4 kr[kStage], vr[kStage];
+    float kscale[kStage], vscale[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) {
+        const int j = i / per_row;
+        const int d = (i - j * per_row) * 16;
+        const long long gi = (long long)(t0 + j) * ksl + d;
+        const long long si = (long long)(t0 + j) * ssl;
+        kr[u] = *reinterpret_cast<const uint4*>(k + gi);
+        vr[u] = *reinterpret_cast<const uint4*>(v + gi);
+        kscale[u] = ksc[si];
+        vscale[u] = vsc[si];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < total) {
+        const int j = i / per_row;
+        const int d = (i - j * per_row) * 16;
+        float* kd = ks + j * (hd + 1) + d;
+        float4* vd = reinterpret_cast<float4*>(vs + j * hd + d);
+        const uint32_t kw[4] = {kr[u].x, kr[u].y, kr[u].z, kr[u].w};
+        const uint32_t vw[4] = {vr[u].x, vr[u].y, vr[u].z, vr[u].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 kf = dequant4(kw[c], kscale[u]);
+          kd[4 * c] = kf.x; kd[4 * c + 1] = kf.y;
+          kd[4 * c + 2] = kf.z; kd[4 * c + 3] = kf.w;
+          vd[c] = dequant4(vw[c], vscale[u]);
+        }
+      }
+    }
+  }
+}
+
+// Whether K/V rows of one (batch, kv-head) can be read 16 bytes at a time:
+// aligned base pointers, and head_dim and every stride (in elements of
+// `elem_bytes`) a whole number of 16-byte vectors.
+inline bool can_vec(const void* k, const void* v, long long ksb,
+                    long long ksh, long long ksl, int hd, int elem_bytes) {
   const unsigned long long a =
       (unsigned long long)k | (unsigned long long)v;
-  return a % 16 == 0 && hd % 4 == 0 && ksb % 4 == 0 && ksh % 4 == 0 &&
-         ksl % 4 == 0;
+  const int width = 16 / elem_bytes;
+  return a % 16 == 0 && hd % width == 0 && ksb % width == 0 &&
+         ksh % width == 0 && ksl % width == 0;
 }
 
 // Fold one staged tile of `tl` keys into a warp's running softmax.

@@ -1,5 +1,5 @@
-// flash_attention_lse: fp32 GQA attention over a dense KV cache, returning
-// the normalised output and its log-sum-exp stats (m, l).
+// flash_attention_lse: GQA attention over a dense fp32 or int8 KV cache,
+// returning the normalised output and its log-sum-exp stats (m, l).
 //
 // Replaces the JAX package's Pallas kernel repro/kernels/flash.py
 // (flash_attention_lse, body _flash_kernel).  One kernel serves three call
@@ -7,9 +7,13 @@
 // decode (n = 1) and causal prefill.
 //
 //   q     [B, H, n, hd] fp32, any strides with head_dim contiguous
-//   k, v  [B, KV, L, hd] fp32 views, any strides with head_dim contiguous
-//         (the port passes its [B, L, KV, hd] caches transposed, with no
-//         copy)
+//   k, v  [B, KV, L, hd] fp32 or int8 views, any strides with head_dim
+//         contiguous (the port passes its [B, L, KV, hd] caches
+//         transposed, with no copy)
+//   k_scale, v_scale  [B, KV, L] fp32 per-row scales of int8 K/V (views
+//         of the [B, L, KV] scale caches), one set of strides; null for
+//         fp32 K/V.  An int8 row is dequantized, float(q) * scale, as it
+//         is staged (the Pallas kernel's int8 mode)
 //   kv_len [B] int32 valid prefix per batch row
 //   qpos  [B, n] int32 absolute query positions, or null (needed for
 //         causal and window masks)
@@ -24,9 +28,10 @@
 // bound of its last query) are never read.
 //
 // What bounds it on an H100: bytes.  At the main path's shapes (B = 1, a
-// few hundred cached keys, 8 KV heads of 128) a launch moves about 2 MB,
-// which the card's 3.35 TB/s moves in under a microsecond, so launch
-// latency and the few CTAs in flight dominate.  The design keeps every
+// few hundred cached keys, 8 KV heads of 128) a launch moves about 2 MB in
+// fp32 (a quarter of the K/V bytes in int8, plus 4 bytes of scale per row
+// and KV head), which the card's 3.35 TB/s moves in under a microsecond,
+// so launch latency and the few CTAs in flight dominate.  The design keeps every
 // K/V byte read once per group from device memory and reads the cache in
 // place (no transposed copy); it does not yet split long caches across
 // CTAs (flash-decoding) or use the tensor cores.
@@ -38,14 +43,17 @@ using namespace attn;
 
 namespace {
 
+template <class Elem>
 __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
     const float* __restrict__ q, long long qsb, long long qsh, long long qsn,
-    const float* __restrict__ k, const float* __restrict__ v, long long ksb,
-    long long ksh, long long ksl, const int* __restrict__ kv_len,
+    const Elem* __restrict__ k, const Elem* __restrict__ v, long long ksb,
+    long long ksh, long long ksl, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, long long ssb, long long ssh,
+    long long ssl, const int* __restrict__ kv_len,
     const int* __restrict__ qpos, float* __restrict__ o,
     float* __restrict__ m_out, float* __restrict__ l_out, int H, int n, int L,
     int hd, int rep, int bq, int causal, int window, float scale,
-    int vec4) {
+    int vec) {
   extern __shared__ __align__(16) float smem[];
   const int nwarps = blockDim.x >> 5;
   const int rows_cap = nwarps * kRowsPerWarp;
@@ -79,13 +87,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
   }
   __syncthreads();
 
-  const float* kb = k + b * ksb + g * ksh;
-  const float* vb = v + b * ksb + g * ksh;
+  const Elem* kb = k + b * ksb + g * ksh;
+  const Elem* vb = v + b * ksb + g * ksh;
+  const float* ksc = k_scale ? k_scale + b * ssb + g * ssh : nullptr;
+  const float* vsc = v_scale ? v_scale + b * ssb + g * ssh : nullptr;
   Rows st;
   st.init();
   for (int t0 = 0; t0 < end; t0 += kBK) {
     const int tl = min(kBK, end - t0);
-    load_tile(kb, vb, ksl, t0, tl, hd, vec4 != 0, ks, vs);
+    load_tile(kb, vb, ksc, vsc, ksl, ssl, t0, tl, hd, vec != 0, ks, vs);
     __syncthreads();
     update(st, qs + row0 * hd, ks, vs, hd, tl, [&](int r, int j) {
       const int kp = t0 + j;
@@ -102,15 +112,19 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
 }  // namespace
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = success).  The
-// caller allocates every buffer; k and v share one set of strides.
+// caller allocates every buffer; k and v share one set of strides (in
+// elements), and so do k_scale and v_scale.  A null k_scale means fp32
+// K/V; otherwise K/V are int8 and both scales are given.
 extern "C" int flash_attention_lse_launch(
     const void* q, long long qsb, long long qsh, long long qsn, const void* k,
     const void* v, long long ksb, long long ksh, long long ksl,
-    const void* kv_len, const void* qpos, void* o, void* m, void* l, int B,
-    int H, int KV, int n, int L, int hd, int bq, int causal, int window,
-    float scale, void* stream) {
+    const void* k_scale, const void* v_scale, long long ssb, long long ssh,
+    long long ssl, const void* kv_len, const void* qpos, void* o, void* m,
+    void* l, int B, int H, int KV, int n, int L, int hd, int bq, int causal,
+    int window, float scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || n < 1 || bq < 1 || hd < 1 ||
-      hd > kMaxHeadDim || B > 65535 || KV > 65535) {
+      hd > kMaxHeadDim || B > 65535 || KV > 65535 ||
+      (k_scale == nullptr) != (v_scale == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int rep = H / KV;
@@ -118,13 +132,25 @@ extern "C" int flash_attention_lse_launch(
   if (rows_cap > kMaxRows) return (int)cudaErrorInvalidValue;
   const int nwarps = (rows_cap + kRowsPerWarp - 1) / kRowsPerWarp;
   const size_t smem = smem_bytes(nwarps, hd);
-  cudaError_t err = allow_smem(flash_attention_lse_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((n + bq - 1) / bq, KV, B);
-  flash_attention_lse_kernel<<<grid, nwarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)q, qsb, qsh, qsn, (const float*)k, (const float*)v, ksb, ksh,
-      ksl, (const int*)kv_len, (const int*)qpos, (float*)o, (float*)m, (float*)l,
-      H, n, L, hd, rep, bq, causal, window, scale,
-      (int)can_vec4(k, v, ksb, ksh, ksl, hd));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k_scale == nullptr) {
+    cudaError_t err = allow_smem(flash_attention_lse_kernel<float>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_lse_kernel<float><<<grid, nwarps * 32, smem, s>>>(
+        (const float*)q, qsb, qsh, qsn, (const float*)k, (const float*)v, ksb,
+        ksh, ksl, nullptr, nullptr, 0, 0, 0, (const int*)kv_len,
+        (const int*)qpos, (float*)o, (float*)m, (float*)l, H, n, L, hd, rep,
+        bq, causal, window, scale, (int)can_vec(k, v, ksb, ksh, ksl, hd, 4));
+  } else {
+    cudaError_t err = allow_smem(flash_attention_lse_kernel<int8_t>, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_lse_kernel<int8_t><<<grid, nwarps * 32, smem, s>>>(
+        (const float*)q, qsb, qsh, qsn, (const int8_t*)k, (const int8_t*)v,
+        ksb, ksh, ksl, (const float*)k_scale, (const float*)v_scale, ssb, ssh,
+        ssl, (const int*)kv_len, (const int*)qpos, (float*)o, (float*)m,
+        (float*)l, H, n, L, hd, rep, bq, causal, window, scale,
+        (int)can_vec(k, v, ksb, ksh, ksl, hd, 1));
+  }
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,16 @@
-// tree_block_attention: fp32 masked attention of a tree layer's queries
-// over the whole tree KV buffer, returning the normalised output and its
+// tree_block_attention: masked attention of a tree layer's queries over
+// the whole fp32 or int8 tree KV buffer, returning the normalised output and its
 // log-sum-exp stats (m, l) for merging with the committed-prefix half.
 //
 // Replaces the JAX package's Pallas kernel repro/kernels/tree_block.py
 // (tree_block_attention, body _tree_kernel).
 //
 //   q       [B, H, n, hd] fp32, any strides with head_dim contiguous
-//   k, v    [B, KV, T, hd] fp32 views of the [B, T, KV, hd] tree caches,
-//           any strides with head_dim contiguous
+//   k, v    [B, KV, T, hd] fp32 or int8 views of the [B, T, KV, hd] tree
+//           caches, any strides with head_dim contiguous
+//   k_scale, v_scale  [B, KV, T] fp32 per-row scales of int8 K/V (views of
+//           the [B, T, KV] scale caches), one set of strides; null for
+//           fp32 K/V.  An int8 row is dequantized as it is staged
 //   mask    [B, n, T] uint8 (a torch.bool buffer), nonzero = may attend:
 //           each row's ancestor-or-self mask against the tree buffer
 //   o [B, H, n, hd], m [B, H, n], l [B, H, n] fp32, contiguous
@@ -25,9 +28,11 @@
 // shapes (n = 8, rep = 8).
 //
 // What bounds it on an H100: bytes, and at these sizes launch latency.  A
-// target launch at B = 1 moves about 1.4 MB (the tree K/V of 105 rows and
-// 8 KV heads, q, the mask, o), under half a microsecond at 3.35 TB/s;
-// with 32 CTAs in flight the kernel runs far from that bound.
+// target launch at B = 1 moves about 1.4 MB in fp32 (the tree K/V of 105
+// rows and 8 KV heads, q, the mask, o; int8 K/V a quarter of their fp32
+// bytes plus 4 bytes of scale per row and KV head), under half a
+// microsecond at 3.35 TB/s; with 32 CTAs in flight the kernel runs far
+// from that bound.
 #include <cuda_runtime.h>
 
 #include "attn_common.cuh"
@@ -36,13 +41,16 @@ using namespace attn;
 
 namespace {
 
+template <class Elem>
 __global__ void __launch_bounds__(kThreads) tree_block_attention_kernel(
     const float* __restrict__ q, long long qsb, long long qsh, long long qsn,
-    const float* __restrict__ k, const float* __restrict__ v, long long ksb,
-    long long ksh, long long ksl, const unsigned char* __restrict__ mask,
+    const Elem* __restrict__ k, const Elem* __restrict__ v, long long ksb,
+    long long ksh, long long ksl, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, long long ssb, long long ssh,
+    long long ssl, const unsigned char* __restrict__ mask,
     float* __restrict__ o, float* __restrict__ m_out,
     float* __restrict__ l_out, int H, int n, int T, int hd, int rep, int bq,
-    float scale, int vec4) {
+    float scale, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int nwarps = blockDim.x >> 5;
   const int rows_cap = nwarps * kRowsPerWarp;
@@ -69,13 +77,15 @@ __global__ void __launch_bounds__(kThreads) tree_block_attention_kernel(
   }
   __syncthreads();
 
-  const float* kb = k + b * ksb + g * ksh;
-  const float* vb = v + b * ksb + g * ksh;
+  const Elem* kb = k + b * ksb + g * ksh;
+  const Elem* vb = v + b * ksb + g * ksh;
+  const float* ksc = k_scale ? k_scale + b * ssb + g * ssh : nullptr;
+  const float* vsc = v_scale ? v_scale + b * ssb + g * ssh : nullptr;
   Rows st;
   st.init();
   for (int t0 = 0; t0 < T; t0 += kBK) {
     const int tl = min(kBK, T - t0);
-    load_tile(kb, vb, ksl, t0, tl, hd, vec4 != 0, ks, vs);
+    load_tile(kb, vb, ksc, vsc, ksl, ssl, t0, tl, hd, vec != 0, ks, vs);
     __syncthreads();
     update(st, qs + row0 * hd, ks, vs, hd, tl, [&](int r, int j) {
       return mrow[r] != nullptr && mrow[r][t0 + j] != 0;
@@ -88,14 +98,18 @@ __global__ void __launch_bounds__(kThreads) tree_block_attention_kernel(
 }  // namespace
 
 // Launch on `stream`; returns the launch's cudaError_t (0 = success).  The
-// caller allocates every buffer; k and v share one set of strides.
+// caller allocates every buffer; k and v share one set of strides (in
+// elements), and so do k_scale and v_scale.  A null k_scale means fp32
+// K/V; otherwise K/V are int8 and both scales are given.
 extern "C" int tree_block_attention_launch(
     const void* q, long long qsb, long long qsh, long long qsn, const void* k,
     const void* v, long long ksb, long long ksh, long long ksl,
-    const void* mask, void* o, void* m, void* l, int B, int H, int KV, int n,
-    int T, int hd, int bq, float scale, void* stream) {
+    const void* k_scale, const void* v_scale, long long ssb, long long ssh,
+    long long ssl, const void* mask, void* o, void* m, void* l, int B, int H,
+    int KV, int n, int T, int hd, int bq, float scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || n < 1 || T < 1 || bq < 1 ||
-      hd < 1 || hd > kMaxHeadDim || B > 65535 || KV > 65535) {
+      hd < 1 || hd > kMaxHeadDim || B > 65535 || KV > 65535 ||
+      (k_scale == nullptr) != (v_scale == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int rep = H / KV;
@@ -103,12 +117,24 @@ extern "C" int tree_block_attention_launch(
   if (rows_cap > kMaxRows) return (int)cudaErrorInvalidValue;
   const int nwarps = (rows_cap + kRowsPerWarp - 1) / kRowsPerWarp;
   const size_t smem = smem_bytes(nwarps, hd);
-  cudaError_t err = allow_smem(tree_block_attention_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((n + bq - 1) / bq, KV, B);
-  tree_block_attention_kernel<<<grid, nwarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)q, qsb, qsh, qsn, (const float*)k, (const float*)v, ksb, ksh,
-      ksl, (const unsigned char*)mask, (float*)o, (float*)m, (float*)l, H, n, T,
-      hd, rep, bq, scale, (int)can_vec4(k, v, ksb, ksh, ksl, hd));
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k_scale == nullptr) {
+    cudaError_t err = allow_smem(tree_block_attention_kernel<float>, smem);
+    if (err != cudaSuccess) return (int)err;
+    tree_block_attention_kernel<float><<<grid, nwarps * 32, smem, s>>>(
+        (const float*)q, qsb, qsh, qsn, (const float*)k, (const float*)v, ksb,
+        ksh, ksl, nullptr, nullptr, 0, 0, 0, (const unsigned char*)mask,
+        (float*)o, (float*)m, (float*)l, H, n, T, hd, rep, bq, scale,
+        (int)can_vec(k, v, ksb, ksh, ksl, hd, 4));
+  } else {
+    cudaError_t err = allow_smem(tree_block_attention_kernel<int8_t>, smem);
+    if (err != cudaSuccess) return (int)err;
+    tree_block_attention_kernel<int8_t><<<grid, nwarps * 32, smem, s>>>(
+        (const float*)q, qsb, qsh, qsn, (const int8_t*)k, (const int8_t*)v,
+        ksb, ksh, ksl, (const float*)k_scale, (const float*)v_scale, ssb, ssh,
+        ssl, (const unsigned char*)mask, (float*)o, (float*)m, (float*)l, H,
+        n, T, hd, rep, bq, scale, (int)can_vec(k, v, ksb, ksh, ksl, hd, 1));
+  }
   return (int)cudaGetLastError();
 }

@@ -13,13 +13,21 @@ The port's caches are ``[B,L,KV,hd]``; callers pass ``cache.transpose(1,
 made.  Stats come back as ``[B,H,n]`` (the Pallas kernel replicates them
 over 128 lanes, a TPU tiling artefact).
 
+int8 mode: ``k_scale``/``v_scale`` ``[B,KV,L]`` fp32 mark ``k``/``v`` as
+per-row symmetric int8 (the int8 serving cache, ``quant.quantize_rows``).
+The kernel dequantizes each row, ``float(q) * scale``, as it stages the
+tile, and the rest is the fp32 arithmetic; the plain version dequantizes
+the whole tensors and runs the fp32 plain path.  Scales are passed as
+views of the ``[B,L,KV]`` scale caches, like K/V.
+
 What bounds the kernel on an H100: bytes, and at the main path's sizes
 (B = 1, a few hundred keys) launch latency.  See
 ``csrc/flash_attention_lse.cu`` for the design.
 
 Dispatch: a CPU tensor goes to ``flash_attention_lse_plain``; a CUDA
-tensor goes to the kernel, or the wrapper raises.  ``launches`` on the
-wrapper counts kernel launches.
+tensor goes to the kernel, or the wrapper raises.  ``launches`` and
+``launches_int8`` on the wrapper count kernel launches in the fp32 and the
+int8 mode.
 """
 from __future__ import annotations
 
@@ -39,9 +47,9 @@ ROWS = 16
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
-_ARGTYPES = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64, _P, _P,
-             _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
-             _I32, _F32, _P]
+_ARGTYPES = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64,
+             _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P,
+             _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P]
 
 
 def rows_i32(x, b: int, device) -> torch.Tensor:
@@ -98,10 +106,54 @@ def masked_softmax_lse(qs, k, v, valid):
     return o / l.clamp_min(MIN_L)[..., None], m, l
 
 
+def dequant_kv(k, v, k_scale, v_scale):
+    """fp32 K/V: int8 rows times their scales when ``k_scale`` is given
+    (the kernels' staging arithmetic), else ``k``/``v`` as they are."""
+    if k_scale is None:
+        return k, v
+    return k.float() * k_scale[..., None], v.float() * v_scale[..., None]
+
+
+def check_kv(name, k, v, k_scale, v_scale):
+    """Raise unless K/V are fp32 without scales, or int8 with fp32 scales
+    of their leading shape; k/v share strides, and so do the scales.
+    Returns whether the int8 mode is asked for."""
+    int8 = k_scale is not None
+    if (v_scale is None) == int8:
+        raise ValueError(f"{name}: give both k_scale and v_scale or neither")
+    want = torch.int8 if int8 else torch.float32
+    if k.dtype != want or v.dtype != want:
+        raise TypeError(f"{name} kernel takes {want} k/v "
+                        f"{'with' if int8 else 'without'} scales, got "
+                        f"{k.dtype}/{v.dtype}")
+    if k.stride(-1) != 1 or k.stride() != v.stride():
+        raise ValueError(f"{name}: k/v need a contiguous head dim and one "
+                         "shared set of strides")
+    if int8 and (k_scale.dtype != torch.float32
+                 or v_scale.dtype != torch.float32
+                 or k_scale.shape != k.shape[:3]
+                 or v_scale.shape != k.shape[:3]
+                 or k_scale.stride() != v_scale.stride()):
+        raise ValueError(f"{name}: scales must be fp32 {tuple(k.shape[:3])} "
+                         "with one shared set of strides")
+    return int8
+
+
+def scale_args(k_scale, v_scale):
+    """The scale pointers and their strides as the launch ABI takes them
+    (null pointers and zero strides for fp32)."""
+    if k_scale is None:
+        return [None, None, 0, 0, 0]
+    return [k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride()]
+
+
 def flash_attention_lse_plain(q, k, v, kv_len, qpos=None, *, scale: float,
-                              window: int = 0, causal: bool = False):
+                              window: int = 0, causal: bool = False,
+                              k_scale=None, v_scale=None):
     """Plain PyTorch version of the kernel (same masking semantics).
-    ``kv_len`` int32 [B], ``qpos`` int32 [B,n] or None."""
+    ``kv_len`` int32 [B], ``qpos`` int32 [B,n] or None; int8 K/V with
+    their scales are dequantized first."""
+    k, v = dequant_kv(k, v, k_scale, v_scale)
     b, h, n, hd = q.shape
     kvh, length = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -111,15 +163,14 @@ def flash_attention_lse_plain(q, k, v, kv_len, qpos=None, *, scale: float,
     return o.reshape(b, h, n, hd), m.reshape(b, h, n), l.reshape(b, h, n)
 
 
-def _launch(q, k, v, kv_len, qpos, *, scale, window, causal):
+def _launch(q, k, v, kv_len, qpos, *, scale, window, causal, k_scale,
+            v_scale):
     b, h, n, hd = q.shape
     kvh, length = k.shape[1], k.shape[2]
-    if q.dtype != torch.float32 or k.dtype != torch.float32 or \
-            v.dtype != torch.float32:
-        raise TypeError("flash_attention_lse kernel takes fp32 q/k/v")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or k.stride() != v.stride():
-        raise ValueError("q/k/v need a contiguous head dim and k/v one "
-                         "shared set of strides")
+    int8 = check_kv("flash_attention_lse", k, v, k_scale, v_scale)
+    if q.dtype != torch.float32 or q.stride(-1) != 1:
+        raise TypeError("flash_attention_lse kernel takes fp32 q with a "
+                        "contiguous head dim")
     if h % kvh or hd > 128 or h // kvh > ROWS:
         raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
     if (causal or window > 0) and qpos is None:
@@ -131,23 +182,28 @@ def _launch(q, k, v, kv_len, qpos, *, scale, window, causal):
     fn = build.launcher("flash_attention_lse", _ARGTYPES)
     err = fn(q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
              k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(1),
-             k.stride(2), kv_len.data_ptr(),
+             k.stride(2), *scale_args(k_scale, v_scale),
+             kv_len.data_ptr(),
              None if qpos is None else qpos.data_ptr(),
              o.data_ptr(), m.data_ptr(), l.data_ptr(),
              b, h, kvh, n, length, hd, max(1, ROWS // rep), int(causal),
              int(window), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention_lse", err)
-    flash_attention_lse.launches += 1
+    if int8:
+        flash_attention_lse.launches_int8 += 1
+    else:
+        flash_attention_lse.launches += 1
     return o, m, l
 
 
-def flash_attention_lse(q, k, v, kv_len, qpos=None, *,
-                        scale: Optional[float] = None, window: int = 0,
-                        causal: bool = False):
+def flash_attention_lse(q, k, v, kv_len, qpos=None, *, k_scale=None,
+                        v_scale=None, scale: Optional[float] = None,
+                        window: int = 0, causal: bool = False):
     """q [B,H,n,hd]; k/v [B,KV,L,hd] (views are read by stride); kv_len an
     int or per-row [B] valid prefix; qpos [n] or [B,n] absolute query
-    positions (needed for ``causal`` and ``window``).
+    positions (needed for ``causal`` and ``window``); k_scale/v_scale
+    [B,KV,L] fp32 for int8 k/v.
 
     Returns (o [B,H,n,hd], m [B,H,n], l [B,H,n]), all fp32.
     """
@@ -157,11 +213,13 @@ def flash_attention_lse(q, k, v, kv_len, qpos=None, *,
     qp = qpos_rows(qpos, b, n, q.device)
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, kv, qp, scale=scale,
-                                         window=window, causal=causal)
+                                         window=window, causal=causal,
+                                         k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash_attention_lse for {q.device}")
     return _launch(q, k, v, kv, qp, scale=scale, window=window,
-                   causal=causal)
+                   causal=causal, k_scale=k_scale, v_scale=v_scale)
 
 
 flash_attention_lse.launches = 0
+flash_attention_lse.launches_int8 = 0

@@ -7,17 +7,28 @@ concatenation (flash-decoding combination), which is how paper Algorithm
 the concatenation.
 
 The device of the tensors picks the implementation: CUDA tensors launch
-the kernels, CPU tensors take their plain versions (see ``flash`` and
-``tree_block``).  There is no switch.
+the kernels, CPU tensors take their plain versions (see ``flash``,
+``tree_block`` and ``quant``).  There is no switch: a CUDA tensor always
+takes the kernel, the int8 ones included.
+
+int8 paths: per-row ``k_scale``/``v_scale`` side tensors mark K/V as
+symmetric int8 (the int8 serving cache) and select the kernels' int8
+mode; ``quant_matmul`` applies a quantized projection weight through the
+``dequant_matmul`` kernel.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.flash import flash_attention_lse, rows_i32
+from repro_torch.kernels.quant import dequant_matmul
 from repro_torch.kernels.tree_block import tree_block_attention
+
+__all__ = ["combine_lse", "tree_attention", "decode_attention",
+           "prefill_attention", "dequant_matmul", "quant_matmul"]
 
 MIN_L = 1e-30
 
@@ -36,35 +47,58 @@ def combine_lse(parts):
 
 def tree_attention(q, k_past, v_past, k_tree, v_tree, tree_mask, past_len,
                    *, scale: Optional[float] = None, window: int = 0,
-                   qpos=None):
+                   qpos=None, k_scale=None, v_scale=None, kt_scale=None,
+                   vt_scale=None):
     """Two-level tree attention: the committed prefix (``past_len`` valid
     rows per batch row, optional sliding ``window`` against ``qpos``) and
     the tree buffer (ancestor mask ``[n,T]`` or ``[B,n,T]``), merged by
     ``combine_lse``.  q [B,H,n,hd]; k/v_past [B,KV,L,hd]; k/v_tree
-    [B,KV,T,hd].  Returns [B,H,n,hd]."""
+    [B,KV,T,hd]; int8 caches pass ``k_scale``/``v_scale`` [B,KV,L] and
+    ``kt_scale``/``vt_scale`` [B,KV,T].  Returns [B,H,n,hd]."""
     past = flash_attention_lse(q, k_past, v_past, past_len, qpos,
+                               k_scale=k_scale, v_scale=v_scale,
                                scale=scale, window=window)
-    tree = tree_block_attention(q, k_tree, v_tree, tree_mask, scale=scale)
+    tree = tree_block_attention(q, k_tree, v_tree, tree_mask,
+                                k_scale=kt_scale, v_scale=vt_scale,
+                                scale=scale)
     return combine_lse([past, tree]).to(q.dtype)
 
 
 def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None,
-                     window: int = 0):
+                     window: int = 0, k_scale=None, v_scale=None):
     """Decode over a KV cache: q [B,H,n,hd] at position ``kv_len - 1`` of
     its batch row, k/v [B,KV,L,hd] with ``kv_len`` (int or [B]) valid
-    rows.  Returns [B,H,n,hd]."""
+    rows, int8 with ``k_scale``/``v_scale`` [B,KV,L] when given.  Returns
+    [B,H,n,hd]."""
     b, _, n, _ = q.shape
     kv = rows_i32(kv_len, b, q.device)
     qpos = (kv - 1)[:, None].expand(b, n)
-    o, _, _ = flash_attention_lse(q, k, v, kv, qpos, scale=scale,
+    o, _, _ = flash_attention_lse(q, k, v, kv, qpos, k_scale=k_scale,
+                                  v_scale=v_scale, scale=scale,
                                   window=window)
     return o.to(q.dtype)
 
 
 def prefill_attention(q, k, v, positions, *, scale: Optional[float] = None,
-                      window: int = 0):
-    """Causal attention for prefill: q [B,H,S,hd], k/v [B,KV,S,hd],
-    positions [S] or [B,S].  Returns [B,H,S,hd]."""
+                      window: int = 0, k_scale=None, v_scale=None):
+    """Causal attention for prefill: q [B,H,S,hd], k/v [B,KV,S,hd] (int8
+    with ``k_scale``/``v_scale`` [B,KV,S] when given), positions [S] or
+    [B,S].  Returns [B,H,S,hd]."""
     o, _, _ = flash_attention_lse(q, k, v, k.shape[2], positions,
+                                  k_scale=k_scale, v_scale=v_scale,
                                   scale=scale, window=window, causal=True)
     return o.to(q.dtype)
+
+
+def quant_matmul(x, q8, scale):
+    """Apply a quantized weight (``q8`` int8 in the fp32 weight's layout,
+    ``scale`` fp32 over its output-channel axes) to ``x``: x's trailing
+    axes contract with the leading ``q8.ndim - scale.ndim`` axes of
+    ``q8``.  The shapes collapse to one 2-D ``dequant_matmul`` and reshape
+    back."""
+    nin = q8.ndim - scale.ndim
+    kdim = math.prod(q8.shape[:nin])
+    batch = x.shape[:x.ndim - nin]
+    y = dequant_matmul(x.reshape(-1, kdim).float(), q8.reshape(kdim, -1),
+                       scale.reshape(-1))
+    return y.reshape(*batch, *q8.shape[nin:])

@@ -1,8 +1,8 @@
 """Plain PyTorch oracles of the attention paths, as the JAX package's
 ``repro/kernels/ref.py`` writes them: masked scores are -inf and the
 softmax is taken over the concatenated sources.  They hold the kernels'
-plain versions to the reference semantics; the int8 and paged oracles
-arrive with their slices.
+plain versions to the reference semantics; the paged oracles arrive with
+their slice.
 """
 from __future__ import annotations
 
@@ -42,6 +42,29 @@ def tree_attention_ref(q, k_past, v_past, k_tree, v_tree, tree_mask,
         torch.einsum("bhns,bhsd->bhnd", probs[..., lmax:], v_tree)
 
 
+def _dequant(q8, row_scale):
+    """int8 values [..., L, hd] times per-row fp32 scales [..., L] -> fp32."""
+    return q8.float() * row_scale[..., None]
+
+
+def tree_attention_quant_ref(q, k_past, v_past, k_tree, v_tree, tree_mask,
+                             past_len, *, k_scale, v_scale, kt_scale,
+                             vt_scale, scale=None):
+    """Quantized two-level tree attention: int8 K/V with per-row fp32
+    scales (``k_scale``/``v_scale`` [B,KV,Lmax], ``kt_scale``/``vt_scale``
+    [B,KV,T]) dequantized densely, then the fp32 reference."""
+    return tree_attention_ref(
+        q, _dequant(k_past, k_scale), _dequant(v_past, v_scale),
+        _dequant(k_tree, kt_scale), _dequant(v_tree, vt_scale),
+        tree_mask, past_len, scale=scale)
+
+
+def dequant_matmul_ref(x, w_q, w_scale):
+    """x [M,K] f32 @ int8 w_q [K,N] with per-out-channel fp32 scales [N] ->
+    [M,N] f32, the scale applied after the fp32 sum."""
+    return (x.float() @ w_q.float()) * w_scale
+
+
 def decode_attention_ref(q, k, v, kv_len, *, window: int = 0, scale=None):
     """Flash-decode reference: q [B,H,1,hd] vs cache k/v [B,KV,Lmax,hd]
     with ``kv_len`` (int or [B]) valid rows and an optional sliding
@@ -58,3 +81,11 @@ def decode_attention_ref(q, k, v, kv_len, *, window: int = 0, scale=None):
         ok &= pos > kv_len - 1 - window
     probs = torch.softmax(logits.masked_fill(~ok, -math.inf), dim=-1)
     return torch.einsum("bhns,bhsd->bhnd", probs, v)
+
+
+def decode_attention_quant_ref(q, k, v, kv_len, *, k_scale, v_scale,
+                               window: int = 0, scale=None):
+    """Quantized flash-decode reference: int8 k/v [B,KV,Lmax,hd] with
+    per-row fp32 scales [B,KV,Lmax], dequantized then scored in fp32."""
+    return decode_attention_ref(q, _dequant(k, k_scale), _dequant(v, v_scale),
+                                kv_len, window=window, scale=scale)

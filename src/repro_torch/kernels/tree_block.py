@@ -9,7 +9,9 @@ with the committed-prefix half (``ops.combine_lse``).
 Layouts follow the JAX function: ``q [B,H,n,hd]``, ``k/v_tree
 [B,KV,T,hd]`` (views of the port's ``[B,T,KV,hd]`` tree caches, read by
 stride), ``tree_mask [n,T]`` or per-row ``[B,n,T]`` bool.  Stats are
-``[B,H,n]``.
+``[B,H,n]``.  int8 mode: ``k_scale``/``v_scale`` ``[B,KV,T]`` fp32 mark
+the tree K/V as per-row symmetric int8, dequantized as each tile is
+staged (see ``flash``).
 
 What bounds the kernel on an H100: bytes, and at the main path's sizes
 (B = 1, T = 105 at 8 stages) launch latency.  The Pallas kernel holds the
@@ -19,8 +21,9 @@ memory, and splits the queries into tiles of at most 16 (query, head) rows
 per CTA like ``flash``.  See ``csrc/tree_block_attention.cu``.
 
 Dispatch: a CPU tensor goes to ``tree_block_attention_plain``; a CUDA
-tensor goes to the kernel, or the wrapper raises.  ``launches`` on the
-wrapper counts kernel launches.
+tensor goes to the kernel, or the wrapper raises.  ``launches`` and
+``launches_int8`` on the wrapper count kernel launches in the fp32 and the
+int8 mode.
 """
 from __future__ import annotations
 
@@ -31,17 +34,21 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash import ROWS, masked_softmax_lse
+from repro_torch.kernels.flash import (ROWS, check_kv, dequant_kv,
+                                      masked_softmax_lse, scale_args)
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
-_ARGTYPES = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64, _P,
-             _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P]
+_ARGTYPES = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64,
+             _P, _P, _I64, _I64, _I64, _P, _P, _P, _P,
+             _I32, _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P]
 
 
 def tree_block_attention_plain(q, k_tree, v_tree, tree_mask, *,
-                               scale: float):
-    """Plain PyTorch version of the kernel; ``tree_mask`` bool [B,n,T]."""
+                               scale: float, k_scale=None, v_scale=None):
+    """Plain PyTorch version of the kernel; ``tree_mask`` bool [B,n,T];
+    int8 K/V with their scales are dequantized first."""
+    k_tree, v_tree = dequant_kv(k_tree, v_tree, k_scale, v_scale)
     b, h, n, hd = q.shape
     kvh = k_tree.shape[1]
     rep = h // kvh
@@ -50,16 +57,14 @@ def tree_block_attention_plain(q, k_tree, v_tree, tree_mask, *,
     return o.reshape(b, h, n, hd), m.reshape(b, h, n), l.reshape(b, h, n)
 
 
-def _launch(q, k_tree, v_tree, mask, *, scale):
+def _launch(q, k_tree, v_tree, mask, *, scale, k_scale, v_scale):
     b, h, n, hd = q.shape
     kvh, t = k_tree.shape[1], k_tree.shape[2]
-    if q.dtype != torch.float32 or k_tree.dtype != torch.float32 or \
-            v_tree.dtype != torch.float32:
-        raise TypeError("tree_block_attention kernel takes fp32 q/k/v")
-    if q.stride(-1) != 1 or k_tree.stride(-1) != 1 or \
-            k_tree.stride() != v_tree.stride():
-        raise ValueError("q/k/v need a contiguous head dim and k/v one "
-                         "shared set of strides")
+    int8 = check_kv("tree_block_attention", k_tree, v_tree, k_scale,
+                    v_scale)
+    if q.dtype != torch.float32 or q.stride(-1) != 1:
+        raise TypeError("tree_block_attention kernel takes fp32 q with a "
+                        "contiguous head dim")
     if h % kvh or hd > 128 or h // kvh > ROWS:
         raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
     o = torch.empty((b, h, n, hd), dtype=torch.float32, device=q.device)
@@ -68,18 +73,23 @@ def _launch(q, k_tree, v_tree, mask, *, scale):
     fn = build.launcher("tree_block_attention", _ARGTYPES)
     err = fn(q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
              k_tree.data_ptr(), v_tree.data_ptr(), k_tree.stride(0),
-             k_tree.stride(1), k_tree.stride(2), mask.data_ptr(),
+             k_tree.stride(1), k_tree.stride(2),
+             *scale_args(k_scale, v_scale), mask.data_ptr(),
              o.data_ptr(), m.data_ptr(), l.data_ptr(),
              b, h, kvh, n, t, hd, max(1, ROWS // (h // kvh)), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("tree_block_attention", err)
-    tree_block_attention.launches += 1
+    if int8:
+        tree_block_attention.launches_int8 += 1
+    else:
+        tree_block_attention.launches += 1
     return o, m, l
 
 
-def tree_block_attention(q, k_tree, v_tree, tree_mask, *,
-                         scale: Optional[float] = None):
-    """q [B,H,n,hd]; k/v_tree [B,KV,T,hd]; tree_mask [n,T] or [B,n,T] bool.
+def tree_block_attention(q, k_tree, v_tree, tree_mask, *, k_scale=None,
+                         v_scale=None, scale: Optional[float] = None):
+    """q [B,H,n,hd]; k/v_tree [B,KV,T,hd]; tree_mask [n,T] or [B,n,T] bool;
+    k_scale/v_scale [B,KV,T] fp32 for int8 k/v_tree.
 
     Returns (o [B,H,n,hd], m [B,H,n], l [B,H,n]), all fp32.
     """
@@ -90,11 +100,14 @@ def tree_block_attention(q, k_tree, v_tree, tree_mask, *,
     mask = mask.to(device=q.device, dtype=torch.bool).expand(b, n, t)
     if q.device.type == "cpu":
         return tree_block_attention_plain(q, k_tree, v_tree, mask,
-                                          scale=scale)
+                                          scale=scale, k_scale=k_scale,
+                                          v_scale=v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no tree_block_attention for {q.device}")
     # a torch.bool buffer is one byte per entry, 0 or 1: the kernel's uint8
-    return _launch(q, k_tree, v_tree, mask.contiguous(), scale=scale)
+    return _launch(q, k_tree, v_tree, mask.contiguous(), scale=scale,
+                   k_scale=k_scale, v_scale=v_scale)
 
 
 tree_block_attention.launches = 0
+tree_block_attention.launches_int8 = 0

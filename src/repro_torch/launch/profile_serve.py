@@ -11,8 +11,9 @@ and copy durations from the trace), its idle share and device time by
 kernel name; writes the Chrome trace to ``--trace``.  The idle share is
 taken against the plain wall time, since the profiler itself slows the
 host; the share against the profiled wall time is printed beside it.
+``--quant int8`` profiles the int8 serving path (both bundles quantized).
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--quant int8]
 """
 from __future__ import annotations
 
@@ -46,14 +47,19 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.profile_serve")
     ap.add_argument("--trace", default="build/profile/profile_serve_trace.json")
+    ap.add_argument("--quant", choices=["none", "int8"], default="none")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     tcfg = dataclasses.replace(pipedec_pair.TARGET,
                                num_layers=TARGET_LAYERS)
     target = ModelBundle(tf.init_model(tcfg, seed=0, device=dev))
+    if args.quant == "int8":    # the fp32 projections are freed here
+        target = target.quantize()
     draft = ModelBundle(tf.init_model(pipedec_pair.DRAFT, seed=1,
                                       device=dev))
+    if args.quant == "int8":
+        draft = draft.quantize()
     eng = PipeDecEngine(target, draft,
                         PipeDecConfig(n_stages=STAGES, width=8, branch=4),
                         max_len=512)
@@ -87,7 +93,8 @@ def main(argv=None) -> None:
             acc[1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / STEPS
     _emit({"profile": "timestep", "device": torch.cuda.get_device_name(0),
-           "target_layers": TARGET_LAYERS, "stages": STAGES,
+           "quant": args.quant, "target_layers": TARGET_LAYERS,
+           "stages": STAGES,
            "steps": STEPS, "wall_ms": wall_ms,
            "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,

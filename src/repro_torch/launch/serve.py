@@ -4,7 +4,10 @@ batch of requests through the ServingEngine in pp or pipedec mode.
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pipedec
 
 runs the smoke-size pair on the card; ``--device cpu`` runs it on the
-CPU.  ``-h`` lists the flags.
+CPU; ``--quant int8`` serves both bundles quantized
+(``ModelBundle.quantize()``: int8 projections through the dequant-matmul
+kernel, an int8 KV cache through the attention kernels' int8 mode).
+``-h`` lists the flags.
 """
 from __future__ import annotations
 
@@ -44,12 +47,19 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     ap.add_argument("--branch", type=int, default=4)
     ap.add_argument("--slots", type=int, default=3,
                     help="pp mode: rows per lockstep batch")
+    ap.add_argument("--quant", choices=["none", "int8"], default="none",
+                    help="int8: serve both bundles quantized "
+                         "(ModelBundle.quantize(): per-out-channel int8 "
+                         "weights and an int8 KV cache)")
     args = ap.parse_args(argv)
 
     target = build_bundle("pipedec-target", seed=0, device=args.device)
     draft = None
     if args.mode == "pipedec":
         draft = build_bundle("pipedec-draft", seed=1, device=args.device)
+    if args.quant == "int8":
+        target = target.quantize()
+        draft = draft.quantize() if draft is not None else None
     pcfg = PipeDecConfig(n_stages=args.stages, width=args.width,
                          branch=args.branch)
     engine = ServingEngine(target, draft, mode=args.mode,

@@ -4,6 +4,10 @@ cache path of paper Algorithm 1: the dense GQA subset of the JAX package's
 
 Shapes follow the JAX package: x [B, S, d_model], q [B, S, H, hd],
 k/v [B, S, KV, hd], caches ``{"k", "v"}`` of [B, L, KV, hd] per layer.
+An int8 model (``cfg.quant == "int8"``) keeps int8 ``k``/``v`` [B, L, KV,
+hd] and fp32 ``k_scale``/``v_scale`` [B, L, KV], one scale per row; fresh
+rows are quantized as they are written, and the kernels run in their int8
+mode on the cache and its scales.  Its projections are ``QuantWeight``s.
 
 All three attention call sites go through the port's kernels
 (``kernels.ops``): causal prefill and decode through
@@ -26,21 +30,25 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init_, param
+from repro_torch.models.layers import (QuantWeight, apply_rope, dense_init_,
+                                       weight)
 
 
 class Attention(nn.Module):
-    """GQA projections: w_q [d,H,hd], w_k/w_v [d,KV,hd], w_o [H,hd,d]."""
+    """GQA projections: w_q [d,H,hd], w_k/w_v [d,KV,hd], w_o [H,hd,d]; int8
+    ``QuantWeight``s when ``cfg.quant == "int8"``."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         h, kv = cfg.num_heads, cfg.num_kv_heads
-        self.w_q = param((d, h, hd), device)
-        self.w_k = param((d, kv, hd), device)
-        self.w_v = param((d, kv, hd), device)
-        self.w_o = param((h, hd, d), device)
+        quant = cfg.quant == "int8"
+        self.w_q = weight((d, h, hd), 1, quant, device)
+        self.w_k = weight((d, kv, hd), 1, quant, device)
+        self.w_v = weight((d, kv, hd), 1, quant, device)
+        self.w_o = weight((h, hd, d), 2, quant, device)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """LeCun normal weights (w_o's fan-in is the head dim, as in JAX)."""
@@ -52,11 +60,15 @@ class Attention(nn.Module):
 
 def _proj(x, w):
     """x [B,S,d] @ w [d,heads,hd] -> [B,S,heads,hd]."""
+    if isinstance(w, QuantWeight):
+        return ops.quant_matmul(x, w.q8, w.scale)
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
 def _out(p: Attention, out):
     """Attention output [B,S,H,hd] through w_o -> [B,S,d]."""
+    if isinstance(p.w_o, QuantWeight):
+        return ops.quant_matmul(out, p.w_o.q8, p.w_o.scale)
     return out.flatten(-2) @ p.w_o.reshape(-1, p.w_o.shape[-1])
 
 
@@ -90,10 +102,27 @@ def gqa_attend(q, k, v, mask, *, scale: Optional[float] = None):
 # KV caches
 # --------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Zeroed fp32 {"k", "v"} [batch, max_len, KV, hd]."""
+    """Zeroed fp32 {"k", "v"} [batch, max_len, KV, hd]; for an int8 model,
+    int8 {"k", "v"} and fp32 {"k_scale", "v_scale"} [batch, max_len, KV]."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if cfg.quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], device=device),
+                "v_scale": torch.zeros(shape[:3], device=device)}
     return {"k": torch.zeros(shape, dtype=torch.float32, device=device),
             "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def kv_updates(cache, k, v):
+    """The rows a K/V write puts in ``cache``: ``k``/``v`` as they are, or,
+    for an int8 cache, their int8 values and per-row scales, so that the
+    values and their scales land in the same write."""
+    if "k_scale" not in cache:
+        return {"k": k, "v": v}
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
 def cache_write_rows(cache, updates, starts: Sequence[int]):
@@ -115,8 +144,18 @@ def cache_write_rows(cache, updates, starts: Sequence[int]):
 
 
 def _heads_first(t):
-    """[B,S,heads,hd] -> a [B,heads,S,hd] view (no copy)."""
+    """[B,S,heads,hd] -> a [B,heads,S,hd] view (no copy); [B,S,heads]
+    scales -> [B,heads,S]."""
     return t.transpose(1, 2)
+
+
+def _scales(cache, k: str = "k_scale", v: str = "v_scale"):
+    """The kernels' int8 keywords for an int8 cache (scale views in the
+    kernels' [B,KV,L] layout), nothing for an fp32 one."""
+    if "k_scale" not in cache:
+        return {}
+    return {k: _heads_first(cache["k_scale"]),
+            v: _heads_first(cache["v_scale"])}
 
 
 # --------------------------------------------------------------------------
@@ -125,12 +164,22 @@ def _heads_first(t):
 def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
                  cache=None, window: int = 0):
     """Causal attention over a whole prompt (prefill); fills ``cache`` rows
-    [0, S) when given.  positions [B,S].  Returns (out [B,S,d], cache)."""
+    [0, S) when given.  positions [B,S].  Returns (out [B,S,d], cache).
+
+    With an int8 cache the prompt attends the same quantized rows the
+    cache keeps (the quantize-dequantize round trip of its own K/V, as in
+    the reference), through the flash kernel's int8 mode, so that a
+    prompt read back from the cache later sees the same values."""
     q, k, v = project_qkv(p, cfg, x, positions)
+    kw = {}
     if cache is not None:
-        cache_write_rows(cache, {"k": k, "v": v}, [0])
+        rows = kv_updates(cache, k, v)
+        cache_write_rows(cache, rows, [0])
+        k, v = rows["k"], rows["v"]
+        kw = _scales(rows)
     out = ops.prefill_attention(_heads_first(q), _heads_first(k),
-                                _heads_first(v), positions, window=window)
+                                _heads_first(v), positions, window=window,
+                                **kw)
     return _out(p, _heads_first(out)), cache
 
 
@@ -140,10 +189,10 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,
     K/V row lands at ``cache_len[b]`` (host ints) and the token attends
     ``kv_len`` [B] = cache_len + 1 rows per batch row."""
     q, k, v = project_qkv(p, cfg, x, position[:, None])
-    cache_write_rows(cache, {"k": k, "v": v}, cache_len)
+    cache_write_rows(cache, kv_updates(cache, k, v), cache_len)
     out = ops.decode_attention(_heads_first(q), _heads_first(cache["k"]),
                                _heads_first(cache["v"]), kv_len,
-                               window=window)
+                               window=window, **_scales(cache))
     return _out(p, _heads_first(out)), cache
 
 
@@ -160,10 +209,12 @@ def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
     the whole tree buffer.  Returns (out [B,n,d], tree_cache).
     """
     q, k, v = project_qkv(p, cfg, x, positions)
-    cache_write_rows(tree_cache, {"k": k, "v": v}, tree_write_index)
+    cache_write_rows(tree_cache, kv_updates(tree_cache, k, v),
+                     tree_write_index)
     out = ops.tree_attention(
         _heads_first(q), _heads_first(model_cache["k"]),
         _heads_first(model_cache["v"]), _heads_first(tree_cache["k"]),
         _heads_first(tree_cache["v"]), tree_mask, model_len,
-        window=window, qpos=positions)
+        window=window, qpos=positions, **_scales(model_cache),
+        **_scales(tree_cache, "kt_scale", "vt_scale"))
     return _out(p, _heads_first(out)), tree_cache

@@ -5,6 +5,10 @@ Weights keep the JAX package's shapes and layouts (``w_gate [d, ff]``,
 port's own initialisers draw from the same distributions as the JAX
 package's (``repro/models/layers.py``), from a ``torch.Generator``; they do
 not draw the same values.
+
+A projection of an int8 model is a ``QuantWeight``: int8 values in the
+fp32 weight's layout and one fp32 scale per output channel (the JAX
+package's ``{"q8", "scale"}`` dict).  ``matmul`` applies either kind.
 """
 from __future__ import annotations
 
@@ -14,11 +18,41 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
+
 
 def param(shape, device) -> nn.Parameter:
     """An uninitialised fp32 weight that takes no gradient."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
                         requires_grad=False)
+
+
+class QuantWeight(nn.Module):
+    """An int8 projection weight: ``q8`` int8 ``[*shape]`` in the fp32
+    weight's layout and ``scale`` fp32 ``[*shape[n_in:]]``, one per output
+    channel; the first ``n_in`` axes contract (``quant.quantize_weight``
+    makes both)."""
+
+    def __init__(self, shape, n_in: int, device):
+        super().__init__()
+        self.register_buffer("q8", torch.empty(shape, dtype=torch.int8,
+                                               device=device))
+        self.register_buffer("scale", torch.empty(
+            shape[n_in:], dtype=torch.float32, device=device))
+
+
+def weight(shape, n_in: int, quant: bool, device):
+    """A projection weight: an fp32 ``param``, or a ``QuantWeight`` whose
+    first ``n_in`` axes contract when ``quant``."""
+    return QuantWeight(shape, n_in, device) if quant else param(shape, device)
+
+
+def matmul(x, w):
+    """``x @ w`` for an fp32 weight, or through the ``dequant_matmul``
+    kernel for a ``QuantWeight``."""
+    if isinstance(w, QuantWeight):
+        return ops.quant_matmul(x, w.q8, w.scale)
+    return x @ w
 
 
 def dense_init_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
@@ -77,13 +111,14 @@ def apply_rope(x, positions, theta: float):
 
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward block: silu(x W_gate) * (x W_up) W_down."""
+    """SwiGLU feed-forward block: silu(x W_gate) * (x W_up) W_down, with
+    int8 ``QuantWeight``s when ``quant``."""
 
-    def __init__(self, d_model: int, d_ff: int, device):
+    def __init__(self, d_model: int, d_ff: int, device, quant: bool = False):
         super().__init__()
-        self.w_gate = param((d_model, d_ff), device)
-        self.w_up = param((d_model, d_ff), device)
-        self.w_down = param((d_ff, d_model), device)
+        self.w_gate = weight((d_model, d_ff), 1, quant, device)
+        self.w_up = weight((d_model, d_ff), 1, quant, device)
+        self.w_down = weight((d_ff, d_model), 1, quant, device)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """LeCun normal weights."""
@@ -97,8 +132,8 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x):
-    """SwiGLU MLP with the weights of ``p``."""
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    """SwiGLU MLP with the weights of ``p`` (fp32 or int8)."""
+    return matmul(F.silu(matmul(x, p.w_gate)) * matmul(x, p.w_up), p.w_down)
 
 
 def embed(table, tokens):

@@ -13,8 +13,9 @@ plain functions, as in the JAX package:
   * ``commit_tree_node`` - move one verified tree node's K/V into the
                            model cache (two-level cache sync, paper 3.4.3).
 
-Caches are lists with one ``{"k", "v"}`` dict of [B, L, KV, hd] per layer,
-updated in place (see ``attention``).  Row offsets (cache lengths, tree
+Caches are lists with one ``{"k", "v"}`` dict of [B, L, KV, hd] per layer
+(plus ``{"k_scale", "v_scale"}`` [B, L, KV] for an int8 model, whose K/V
+are int8), updated in place (see ``attention``).  Row offsets (cache lengths, tree
 write offsets) are host ints, so every write is checked to fit before it
 is made; bounds that the kernels read are built once per step on the
 model's device.
@@ -40,12 +41,14 @@ def check_supported(cfg: ModelConfig) -> None:
         ("mla", cfg.mla is not None), ("moe", cfg.moe is not None),
         ("ssm", cfg.ssm is not None), ("rglru", cfg.rglru is not None),
         ("encoder", cfg.encoder is not None), ("qkv_bias", cfg.qkv_bias),
-        ("quant", bool(cfg.quant)), ("prefix_tokens", cfg.prefix_tokens > 0),
+        (f"quant={cfg.quant}", cfg.quant not in ("", "int8")),
+        ("prefix_tokens", cfg.prefix_tokens > 0),
         (f"mlp_variant={cfg.mlp_variant}", cfg.mlp_variant != "swiglu"),
         (f"family={cfg.family}", cfg.family != "dense")) if on]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense swiglu decoders only, not "
+            f"{cfg.name}: the port runs dense swiglu decoders (fp32 or "
+            f"int8) only, not "
             f"{', '.join(bad)}")
 
 
@@ -57,7 +60,8 @@ class DecoderLayer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.mixer = attn.Attention(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, device,
+                       quant=cfg.quant == "int8")
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Draw the layer's weights from ``gen``."""
@@ -78,7 +82,9 @@ class Embedding(nn.Module):
 class Transformer(nn.Module):
     """Embedding, decoder layers, final norm and LM head (tied to the
     embedding when ``cfg.tie_embeddings``).  Weights are uninitialised
-    until ``reset_parameters`` or the weight bridge fills them."""
+    until ``reset_parameters`` or the weight bridge fills them.  With
+    ``cfg.quant == "int8"`` the seven projections of each layer are int8
+    ``QuantWeight``s; embeddings, norms and the LM head stay fp32."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -99,6 +105,9 @@ class Transformer(nn.Module):
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Draw every weight from ``gen`` (the JAX package's distributions,
         not its values)."""
+        if self.cfg.quant:
+            raise ValueError("int8 weights are not drawn: draw an fp32 model "
+                             "and quantize it (ModelBundle.quantize)")
         embed_init_(self.embed.table, gen)
         self.final_norm.reset_parameters()
         if self.lm_head is not None:
@@ -126,7 +135,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> List[dict]:
     """Model KV cache: one zeroed {"k", "v"} [batch, max_len, KV, hd] per
-    layer."""
+    layer (int8, with fp32 per-row scales, for an int8 model)."""
     dev = resolve_device(device)
     return [attn.init_kv_cache(cfg, batch, max_len, dev)
             for _ in range(cfg.num_layers)]
@@ -254,7 +263,8 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
 def commit_tree_node(cache, tree_caches, node_idx: int, model_len: int):
     """Two-level cache sync (paper 3.4.3): copy tree row ``node_idx`` of
     every layer's tree cache into its model cache at row ``model_len``, in
-    place.  Returns the model cache."""
+    place: every leaf, so int8 rows move with their scales as they are,
+    with no new quantization.  Returns the model cache."""
     for layer_cache, layer_tree in zip(cache, tree_caches):
         for name, buf in layer_cache.items():
             if not 0 <= model_len < buf.shape[1]:
