@@ -24,16 +24,36 @@ Phases, each printed as JSON objects, one per line:
                  ``ModelBundle.quantize()`` (int8 projections through the
                  dequant-matmul kernel, int8 KV caches through the attention
                  kernels' int8 mode), checked against int8 autoregressive
-                 decoding;
+                 decoding (it runs after phases 7 and 8, which need the
+                 fp32 target that quantizing frees);
   6. self-draft-int8 - the int8 target as its own draft;
-  7. cli       - ``repro_torch.launch.serve.main`` in pp and pipedec modes,
-                 fp32 and ``--quant int8``, and the smoke pair on the card
-                 against the same weights on the CPU, fp32 and int8.
+  7. serve-db  - SpecPipe-DB (``ServingEngine(mode="pipedec-db")``, the
+                 local executor, 3 slots) over the same pair and prompts,
+                 with staggered arrivals, once on the dense arena and once
+                 on the block-paged one (16-row pages), whose tree verify
+                 runs the paged kernels: tokens checked against phase 3's
+                 autoregressive tokens, the paged run's tokens and
+                 per-request stats against the dense run's, bit for bit;
+  8. self-draft-db - the 8-layer target as its own draft on the paged
+                 arena, 3 requests on 2 slots: every prediction hits, so
+                 the paged commit and the batched prune remap run;
+  9. serve-int8 - the int8 path: the same pair and requests after
+                 ``ModelBundle.quantize()`` (phase 5 above);
+ 10. serve-db-int8 - the int8 pair on the paged arena, checked against
+                 phase 9's int8 autoregressive tokens;
+ 11. cli       - ``repro_torch.launch.serve.main`` in pp, pipedec and
+                 pipedec-db --paged modes, fp32 and ``--quant int8``, and
+                 the smoke pair on the card against the same weights on the
+                 CPU, fp32 and int8.
 
-Phases 3 to 6 and each CLI run set the kernels' launch counts to 0 just
-before they run and check them just after against the model calls.
+Phase 2 also holds each paged kernel (the paged modes of the two attention
+kernels) against its plain version and, bit for bit, against the dense
+kernel on the view gathered through the block table.  Every serving
+phase and each CLI run set the kernels' launch counts to 0 just before
+they run and check them just after against the model calls.
 
-Then the per-kernel summary line and, last, the result line.  Any failed
+Then the card's name and power limit as nvidia-smi reports them, the
+per-kernel summary line and, last, the result line.  Any failed
 check makes the exit code 1 and suppresses the result line.  Without CUDA,
 or without the port's sources beside this file, it exits 1 at once.
 """
@@ -77,6 +97,14 @@ TARGET_LAYERS = 8        # one layer per stage of the paper's 8-stage pipeline
 SERVE_REQUESTS = 4
 SERVE_NEW_TOKENS = 32
 SELF_DRAFT_NEW_TOKENS = 40
+# SpecPipe-DB: slots, the arrival timestep of each of phase 3's prompts (a
+# slot is recycled and the bucket changes size during the run), the arena
+# length and the page size of the paged arena
+DB_SLOTS = 3
+DB_ARRIVALS = (0, 0, 3, 6)
+DB_INT8_REQUESTS = 2
+DB_MAX_LEN = 512
+PAGE = 16
 # projections per layer per forward call, each one dequant_matmul launch
 PROJECTIONS = 7
 
@@ -182,6 +210,18 @@ KERNEL_ROWS = (
      "src/repro/kernels/tree_block.py:54"),
     ("dequant_matmul", "src/repro_torch/csrc/dequant_matmul.cu",
      "src/repro/kernels/quant.py:113"),
+    ("paged_flash_attention_lse",
+     "src/repro_torch/csrc/flash_attention_lse.cu",
+     "src/repro/kernels/paged.py:50"),
+    ("paged_flash_attention_lse int8",
+     "src/repro_torch/csrc/flash_attention_lse.cu",
+     "src/repro/kernels/paged.py:50"),
+    ("paged_tree_block_attention",
+     "src/repro_torch/csrc/tree_block_attention.cu",
+     "src/repro/kernels/paged.py:186"),
+    ("paged_tree_block_attention int8",
+     "src/repro_torch/csrc/tree_block_attention.cu",
+     "src/repro/kernels/paged.py:186"),
 )
 
 
@@ -360,6 +400,7 @@ def phase_kernels(state):
             ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms))
     bad += dequant_cases(torch, dev, summary)
+    bad += paged_cases(torch, dev, summary)
     state["kernel_summary"] = summary
     if bad:
         raise AssertionError(f"kernels disagree with plain: {bad}")
@@ -421,20 +462,184 @@ def dequant_cases(torch, dev, summary):
     return bad
 
 
+# (name, h, kvh, hd, n, kv_len per row or None for a tree case, main): the
+# paged kernels at the DB path's bucket 3.  Flash: the tree-verify past
+# half (n = 8) and decode (n = 1) over a 512-row arena; tree: T = 105 (8
+# stages, width 8), 7 blocks of 16 rows, the last 7 rows past T.
+PAGED_CASES = (
+    ("paged flash/tree-past target B=3", 64, 8, 128, 8, (90, 200, 130),
+     True),
+    ("paged flash/tree-past draft B=3", 32, 8, 64, 8, (90, 200, 130),
+     False),
+    ("paged flash/decode target B=3", 64, 8, 128, 1, (91, 201, 131), False),
+    ("paged tree/target B=3 T=105", 64, 8, 128, 8, None, True),
+    ("paged tree/draft B=3 T=105", 32, 8, 64, 8, None, False),
+)
+PAGED_B, PAGED_T = 3, 105
+
+
+def _paged_pool(torch, dense, horizon, gen):
+    """A shuffled paged copy of ``dense`` [B, L, KV, ...]: row b backs its
+    first ``horizon[b]`` rows with blocks in a random order, and the rest
+    of its table is the null block.  Returns (pool view [Nb, KV, page,
+    ...], table [B, mb] int32), both on the card."""
+    from repro_torch.models import paging
+    b, length = dense.shape[:2]
+    need = [paging.n_blocks(h, PAGE) for h in horizon]
+    ids = 1 + torch.randperm(sum(need), generator=gen)
+    table = torch.zeros(b, paging.n_blocks(length, PAGE), dtype=torch.int32)
+    i = 0
+    for row, n in enumerate(need):
+        table[row, :n] = ids[i:i + n]
+        i += n
+    p = paging.make_paged(dense, table.to(dense.device), PAGE)
+    return paging.pool_view(p.pages, PAGE), p.table
+
+
+def paged_cases(torch, dev, summary):
+    """The paged kernels against their plain versions and, bit for bit,
+    against the dense kernel on the view gathered through the table; with
+    kernel, dense, plain and library times and the bound.  Returns the
+    failed cases."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash, paged, tree_block
+    from repro_torch.kernels.flash import dequant_kv, valid_mask
+    from repro_torch.kernels.quant import quantize_rows
+    bad = []
+    for int8 in (False, True):
+        for name, h, kvh, hd, n, kv_len, main in PAGED_CASES:
+            gen = torch.Generator().manual_seed(len(name) + 7 * int8)
+            b = PAGED_B
+            length = DB_MAX_LEN if kv_len else PAGED_T
+            # each row backs its horizon (its rows, plus a tree's slack in
+            # the model arena); the table is the null block past it
+            horizon = ([min(length, k + PAGED_T) for k in kv_len] if kv_len
+                       else [length] * b)
+            kv = {}
+            for part in ("k", "v"):
+                x = torch.randn(b, length, kvh, hd, generator=gen).to(dev)
+                if int8:
+                    x, kv[part + "_scale"] = quantize_rows(x)
+                kv[part] = x
+            pools = {}
+            for key, x in kv.items():
+                pools[key], table = _paged_pool(
+                    torch, x, horizon, torch.Generator().manual_seed(1))
+            q = torch.randn(b, h, n, hd, generator=gen).to(dev)
+            sc = {k: pools[k] for k in ("k_scale", "v_scale") if int8}
+            scale = 1.0 / hd ** 0.5
+            nb = table.shape[1]
+            dense = {k: paged.gather_pool(v, table, nb * PAGE if kv_len
+                                          else length)
+                     for k, v in pools.items()}
+            dsc = {k: dense[k] for k in ("k_scale", "v_scale") if int8}
+            if kv_len:
+                kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+                qpos = ((kvl.long() - 1)[:, None]
+                        + torch.arange(n, device=dev) // 2).to(torch.int32)
+                row = "paged_flash_attention_lse"
+
+                def run(q=q, pools=pools, table=table, kvl=kvl, qpos=qpos,
+                        sc=sc):
+                    return paged.paged_flash_attention_lse(
+                        q, pools["k"], pools["v"], table, kvl, qpos, **sc)
+
+                def plain(q=q, pools=pools, table=table, kvl=kvl, qpos=qpos,
+                          sc=sc):
+                    return paged.paged_flash_attention_lse_plain(
+                        q, pools["k"], pools["v"], table, kvl, qpos,
+                        scale=scale, **sc)
+
+                def dense_run(q=q, dense=dense, kvl=kvl, qpos=qpos, dsc=dsc):
+                    return flash.flash_attention_lse(
+                        q, dense["k"], dense["v"], kvl, qpos, **dsc)
+                valid = valid_mask(b, n, nb * PAGE, kvl, qpos, False, 0, dev)
+                extra = 4 * b * nb + 4 * b + 4 * b * n
+            else:
+                mask = torch.rand(b, n, length, generator=gen) < 0.3
+                mask[:, -1] = False                       # an empty row
+                mask = mask.to(dev)
+                row = "paged_tree_block_attention"
+
+                def run(q=q, pools=pools, table=table, mask=mask, sc=sc):
+                    return paged.paged_tree_block_attention(
+                        q, pools["k"], pools["v"], table, mask, **sc)
+
+                def plain(q=q, pools=pools, table=table, mask=mask, sc=sc):
+                    return paged.paged_tree_block_attention_plain(
+                        q, pools["k"], pools["v"], table, mask, scale=scale,
+                        **sc)
+
+                def dense_run(q=q, dense=dense, mask=mask, dsc=dsc):
+                    return tree_block.tree_block_attention(
+                        q, dense["k"], dense["v"], mask, **dsc)
+                valid = mask
+                extra = 4 * b * nb + b * n * length
+            row += " int8" if int8 else ""
+            got = run()
+            torch.cuda.synchronize()
+            err_o, err_m, err_l = _errors(got, plain())
+            ref = dense_run()
+            bit_equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+            err_dense = float((got[0] - ref[0]).abs().max())
+            ok = (err_o <= TOL_O_ABS and err_m <= TOL_M_REL
+                  and err_l <= TOL_L_REL and bit_equal)
+            # the library yardstick: SDPA on the gathered (int8:
+            # dequantized) fp32 view, made outside the timing; no PyTorch
+            # call takes a block table
+            lib_k, lib_v = dequant_kv(dense["k"], dense["v"],
+                                      dsc.get("k_scale"), dsc.get("v_scale"))
+
+            def library(q=q, k=lib_k, v=lib_v, mask=valid[:, None]):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=h // kvh > 1)
+            bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8)
+            (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
+            (d_ms, d_eager), (lib_ms, lib_eager) = (cuda_ms(dense_run),
+                                                     cuda_ms(library))
+            emit({"phase": "kernels", "case": name + (" int8" if int8
+                                                       else ""),
+                  "kernel": row, "shapes": {
+                      "q": list(q.shape), "pool": list(pools["k"].shape),
+                      "table": list(table.shape), "kv_dtype": str(
+                          pools["k"].dtype), "page": PAGE,
+                      "kv_len": list(kv_len) if kv_len else None},
+                  "max_abs_err": err_o, "m_rel_err": err_m,
+                  "l_rel_err": err_l, "tol": {"o_abs": TOL_O_ABS,
+                                              "m_rel": TOL_M_REL,
+                                              "l_rel": TOL_L_REL},
+                  "dense_bit_equal": bit_equal,
+                  "max_abs_err_vs_dense": err_dense, "ok": ok,
+                  "kernel_ms": k_ms, "dense_ms": d_ms, "plain_ms": p_ms,
+                  "library_ms": lib_ms,
+                  "library": "SDPA on the gathered" + (
+                      ", dequantized fp32" if int8 else " fp32") + " view",
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "eager_ms": {"kernel": k_eager, "dense": d_eager,
+                               "plain": p_eager, "library": lib_eager}})
+            if not ok:
+                bad.append(name)
+            _summarise(summary, row, err_o, main, name, dict(
+                ms=k_ms, dense_ms=d_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms))
+    return bad
+
+
 # ---------------------------------------------------------------------------
 # launch counts: zeroed before a path runs, checked against its model calls
 # ---------------------------------------------------------------------------
 def _counters():
     """(row name, wrapper, counter attribute) of every KERNEL_ROWS entry."""
-    from repro_torch.kernels import flash, quant, tree_block
-    return (("flash_attention_lse", flash.flash_attention_lse, "launches"),
-            ("flash_attention_lse int8", flash.flash_attention_lse,
-             "launches_int8"),
-            ("tree_block_attention", tree_block.tree_block_attention,
-             "launches"),
-            ("tree_block_attention int8", tree_block.tree_block_attention,
-             "launches_int8"),
-            ("dequant_matmul", quant.dequant_matmul, "launches"))
+    from repro_torch.kernels import flash, paged, quant, tree_block
+    out = []
+    for row, fn in (("flash_attention_lse", flash.flash_attention_lse),
+                    ("tree_block_attention", tree_block.tree_block_attention),
+                    ("paged_flash_attention_lse",
+                     paged.paged_flash_attention_lse),
+                    ("paged_tree_block_attention",
+                     paged.paged_tree_block_attention)):
+        out += [(row, fn, "launches"), (row + " int8", fn, "launches_int8")]
+    return (*out, ("dequant_matmul", quant.dequant_matmul, "launches"))
 
 
 def zero_launches(*bundles):
@@ -446,27 +651,33 @@ def zero_launches(*bundles):
             b.calls.clear()
 
 
-def read_launches(*bundles):
+def read_launches(*bundles, paged=False):
     """(launches, expected): the kernels' counts by KERNEL_ROWS name, and
     what the bundles' calls imply.  Each forward pass launches flash once
     per layer, and each tree verify the tree kernel once per layer, in
     their int8 mode for an int8 bundle; each forward pass of an int8
     bundle also launches dequant_matmul once per projection of each layer.
-    A bundle that serves as both target and draft is counted once."""
+    A fused DB tree verify (``tree_verify_rows``) on a ``paged`` arena
+    launches the paged flash and paged tree kernels instead of the dense
+    ones.  A bundle that serves as both target and draft is counted once."""
     launches = {row: getattr(fn, attr) for row, fn, attr in _counters()}
     expect = dict.fromkeys(launches, 0)
     uniq = {id(b): b for b in bundles if b is not None}.values()
     for b in uniq:
         layers, calls = b.cfg.num_layers, b.calls
-        forward = sum(calls.get(k, 0)
-                      for k in ("prefill", "decode", "tree_verify"))
+        rows = calls.get("tree_verify_rows", 0)
+        trees = calls.get("tree_verify", 0) + (0 if paged else rows)
+        forward = sum(calls.get(k, 0) for k in ("prefill", "decode")) + trees
         int8 = b.cfg.quant == "int8"
         mode = " int8" if int8 else ""
         expect["flash_attention_lse" + mode] += layers * forward
-        expect["tree_block_attention" + mode] += \
-            layers * calls.get("tree_verify", 0)
+        expect["tree_block_attention" + mode] += layers * trees
+        if paged:
+            expect["paged_flash_attention_lse" + mode] += layers * rows
+            expect["paged_tree_block_attention" + mode] += layers * rows
         if int8:
-            expect["dequant_matmul"] += PROJECTIONS * layers * forward
+            expect["dequant_matmul"] += PROJECTIONS * layers * (
+                forward + (rows if paged else 0))
     return launches, expect
 
 
@@ -479,6 +690,12 @@ def launches_ok(launches, expect, used):
 FP32_PATH = ("flash_attention_lse", "tree_block_attention")
 INT8_PATH = ("flash_attention_lse int8", "tree_block_attention int8",
              "dequant_matmul")
+# the paged DB path: the dense flash kernel only in admission prefill
+PAGED_PATH = ("flash_attention_lse", "paged_flash_attention_lse",
+              "paged_tree_block_attention")
+PAGED_INT8_PATH = ("flash_attention_lse int8",
+                   "paged_flash_attention_lse int8",
+                   "paged_tree_block_attention int8", "dequant_matmul")
 
 
 # ---------------------------------------------------------------------------
@@ -540,10 +757,12 @@ def _serve(phase, state, target, draft, path, extra):
     tc, dc = dict(target.calls), dict(draft.calls)
 
     rows, ok = [], launches_ok(launches, expect, path)
+    state["prompts"] = prompts
+    ar = state.setdefault("autoregressive", {})[phase] = {}
     for uid, p in enumerate(prompts):
         res = results[uid]
-        want = generate_autoregressive(target, p, SERVE_NEW_TOKENS,
-                                       max_len=256)
+        want = ar[uid] = generate_autoregressive(target, p, SERVE_NEW_TOKENS,
+                                                 max_len=256)
         same, tie = _lossless(target, p, res.tokens, want)
         ok = ok and same
         st = res.stats
@@ -582,7 +801,7 @@ def phase_serve(state):
     draft = ModelBundle(tf.init_model(pipedec_pair.DRAFT, seed=1,
                                       device="cuda"))
     torch.cuda.synchronize()
-    state["target"] = target
+    state["target"], state["draft"] = target, draft
     _serve("serve", state, target, draft, FP32_PATH,
            {"init_s": time.perf_counter() - t0})
 
@@ -619,32 +838,211 @@ def phase_self_draft(state):
 
 
 # ---------------------------------------------------------------------------
+# phases 7, 8 and 10: SpecPipe-DB at full width, dense and paged arenas
+# ---------------------------------------------------------------------------
+STATS = ("timesteps", "commits", "hits", "misses", "entries",
+         "commits_per_step")
+
+
+def _db_run(target, draft, requests, *, paged, slots, pcfg):
+    """One SpecPipe-DB run through ServingEngine(mode="pipedec-db") on the
+    local executor; launch counts zeroed just before and read just after.
+    Returns (engine, results, executor, serve_s, peak_gb, launches,
+    expect)."""
+    import torch
+    from repro_torch.serving import (LocalFusedExecutor, Request,
+                                     ServingEngine)
+    ex = LocalFusedExecutor(target, draft, slots=slots, max_len=DB_MAX_LEN,
+                            tree_capacity=pcfg.tree_buffer_capacity,
+                            capacity=pcfg.capacity, paged=paged, page=PAGE)
+    engine = ServingEngine(target, draft, mode="pipedec-db", max_batch=slots,
+                           max_len=DB_MAX_LEN, pipedec=pcfg, executor=ex)
+    for uid, prompt, new, arrival in requests:
+        engine.submit(Request(uid, prompt, new, arrival_t=arrival))
+    zero_launches(target, draft)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches, expect = read_launches(target, draft, paged=paged)
+    return (engine, results, ex, serve_s,
+            torch.cuda.max_memory_allocated() / 1e9, launches, expect)
+
+
+def _db_phase(phase, state, target, draft, requests, want, path, slots,
+              pcfg, paged_only=False):
+    """Serve ``requests`` (uid, prompt, new tokens, arrival) with
+    SpecPipe-DB on the dense and then the paged arena (the paged one only
+    when ``paged_only``); tokens against ``want`` by uid (near-tie rule),
+    the paged run's tokens and GenStats against the dense run's, and the
+    launch counts against the model calls (``path`` on the paged run).
+    Emits one line per run; raises if a check fails."""
+    from repro_torch.configs import pipedec_pair
+    runs, ok = {}, True
+    for paged in ((True,) if paged_only else (False, True)):
+        engine, res, ex, serve_s, peak_gb, launches, expect = _db_run(
+            target, draft, requests, paged=paged, slots=slots, pcfg=pcfg)
+        st = engine.db_stats
+        counted = launches_ok(launches, expect,
+                              path if paged else
+                              tuple(p.replace("paged_", "") for p in path))
+        counted = counted and ex.calls["verify_rows"] == sum(
+            st.verify_dispatches)
+        if paged:
+            counted = counted and all(
+                launches[r] == 0 for r in launches
+                if r.startswith("tree_block_attention"))
+            state["launches"].update({k: launches[k] for k in path
+                                      if k.startswith("paged_")})
+        rows, good = [], counted
+        for uid, prompt, new, arrival in requests:
+            r = res[uid]
+            same, tie = _lossless(target, prompt, r.tokens, want[uid])
+            good = good and same
+            rows.append({"uid": uid, "prompt_len": len(prompt),
+                         "arrival_t": arrival, "latency_s": r.latency_s,
+                         "acceptance": r.stats.acceptance,
+                         "tokens_per_timestep": r.stats.tokens_per_timestep,
+                         "timesteps": r.stats.timesteps, "hits": r.stats.hits,
+                         "lossless": same, "near_tie": tie})
+        runs[paged] = res
+        if paged and not paged_only:
+            same_run = all(
+                (runs[True][u].tokens == runs[False][u].tokens).all()
+                and all(getattr(runs[True][u].stats, k)
+                        == getattr(runs[False][u].stats, k) for k in STATS)
+                for u in runs[False])
+            good = good and same_run
+        ok = ok and good
+        emit({"phase": phase, "ok": good, "mode": "pipedec-db",
+              "arena": "paged" if paged else "dense",
+              "page": PAGE if paged else None,
+              "quant": target.cfg.quant or "none",
+              "target": target.cfg.name, "draft": draft.cfg.name,
+              "reduced": {"target_layers": f"{target.cfg.num_layers} of "
+                          f"{pipedec_pair.TARGET.num_layers}"},
+              "pipedec": {"n_stages": pcfg.n_stages, "width": pcfg.width,
+                          "branch": pcfg.branch},
+              "slots": slots, "max_len": DB_MAX_LEN,
+              "paged_equals_dense": (same_run if paged and not paged_only
+                                     else None),
+              "timesteps": st.timesteps,
+              "peak_occupancy": st.peak_occupancy,
+              "tokens_per_timestep": st.tokens_per_timestep,
+              "acceptance_rate": st.acceptance_rate,
+              "serve_s": serve_s, "ms_per_timestep":
+                  1e3 * serve_s / max(st.timesteps, 1),
+              "pool_bytes": engine.executor.arena.pool_bytes(),
+              "peak_mem_gb": peak_gb,
+              "executor_calls": dict(ex.calls),
+              "calls": {"target": dict(target.calls),
+                        "draft": dict(draft.calls)},
+              "launches": launches, "expected_launches": expect,
+              "page_counters": st.page_counters[-1] if paged else None,
+              "requests": rows})
+    if not ok:
+        raise AssertionError(f"{phase} phase failed: see its lines")
+
+
+def _db_requests(state, n):
+    prompts = state["prompts"][:n]
+    return [(uid, p, SERVE_NEW_TOKENS, DB_ARRIVALS[uid])
+            for uid, p in enumerate(prompts)]
+
+
+def phase_serve_db(state):
+    from repro_torch.core.pipedec import PipeDecConfig
+    _db_phase("serve-db", state, state["target"], state["draft"],
+              _db_requests(state, SERVE_REQUESTS),
+              state["autoregressive"]["serve"], PAGED_PATH, DB_SLOTS,
+              PipeDecConfig(n_stages=8, width=8, branch=4))
+
+
+def phase_self_draft_db(state):
+    """The 8-layer target as its own draft, 4 stages, paged, 3 requests
+    on 2 slots: every prediction hits, so the paged commit and the batched
+    prune remap run.  Per request: acceptance 1.0, more than 0.75 tokens
+    per timestep and tokens equal to autoregressive decoding (near-tie
+    rule); remap_rows > 0.  The single-request engine's tokens per
+    timestep on the same prompts are printed beside (the tree's shape, so
+    its capacity stalls, depends on the prompt)."""
+    import numpy as np
+    from repro_torch.core.baselines import generate_autoregressive
+    from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
+    target = state["target"]
+    pcfg = PipeDecConfig(n_stages=4, width=8, branch=4)
+    prompts = [np.array([3, 3, 8]), np.array([5, 1, 9, 2]),
+               np.array([7, 7])]
+    requests = [(uid, p, SELF_DRAFT_NEW_TOKENS, 0)
+                for uid, p in enumerate(prompts)]
+    engine, res, ex, serve_s, _, launches, expect = _db_run(
+        target, target, requests, paged=True, slots=2, pcfg=pcfg)
+    calls = dict(target.calls)          # before the reference runs below
+    per, ok = {}, True
+    single = PipeDecEngine(target, target, pcfg)
+    for uid, prompt, new, _ in requests:
+        st = res[uid].stats
+        same, tie = _lossless(target, prompt, res[uid].tokens,
+                              generate_autoregressive(target, prompt, new))
+        per[uid] = {"acceptance": st.acceptance,
+                    "tokens_per_timestep": st.tokens_per_timestep,
+                    "single_request_tokens_per_timestep":
+                        single.generate(prompt, new)[1].tokens_per_timestep,
+                    "lossless": same, "near_tie": tie}
+        ok = ok and same and st.acceptance == 1.0 and \
+            st.tokens_per_timestep > 0.75
+    ok = (ok and ex.calls["remap_rows"] > 0
+          and launches_ok(launches, expect, PAGED_PATH))
+    emit({"phase": "self-draft-db", "ok": ok, "arena": "paged",
+          "quant": target.cfg.quant or "none", "slots": 2,
+          "per_request": per,
+          "timesteps": engine.db_stats.timesteps,
+          "peak_occupancy": engine.db_stats.peak_occupancy,
+          "executor_calls": dict(ex.calls), "calls": calls,
+          "launches": launches, "expected_launches": expect,
+          "wall_s": serve_s})
+    if not ok:
+        raise AssertionError("self-draft-db: lossless tokens, acceptance "
+                             "1.0, tokens/timestep > 0.75, remap_rows > 0 "
+                             "and launches as expected are required")
+
+
+def phase_serve_db_int8(state):
+    from repro_torch.core.pipedec import PipeDecConfig
+    _db_phase("serve-db-int8", state, state["target_int8"],
+              state["draft_int8"], _db_requests(state, DB_INT8_REQUESTS),
+              state["autoregressive"]["serve-int8"], PAGED_INT8_PATH,
+              DB_INT8_REQUESTS, PipeDecConfig(n_stages=8, width=8, branch=4),
+              paged_only=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the int8 serving path at full width
 # ---------------------------------------------------------------------------
 def phase_serve_int8(state):
     """Quantize phase 3's fp32 target on the card and free its fp32
-    projections before the int8 draft is made, so the fp32 pair never
-    lives beside the int8 one (peak about 36 + 15 GB while the target is
-    quantized)."""
+    projections, then quantize its draft the same way, so the fp32 pair
+    never lives beside the int8 one (peak about 36 + 5 + 15 GB while the
+    target is quantized)."""
     import gc
     import torch
-    from repro_torch.configs import pipedec_pair
-    from repro_torch.core.speculative import ModelBundle
-    from repro_torch.models import transformer as tf
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fp32 = state.pop("target")
     target = fp32.quantize()
     del fp32
-    draft = ModelBundle(tf.init_model(pipedec_pair.DRAFT, seed=1,
-                                      device="cuda")).quantize()
+    fp32 = state.pop("draft")
+    draft = fp32.quantize()
+    del fp32
     gc.collect()
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
     quantize_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
-    state["target_int8"] = target
+    state["target_int8"], state["draft_int8"] = target, draft
     _serve("serve-int8", state, target, draft, INT8_PATH,
            {"quantize_s": quantize_s, "quantize_peak_mem_gb":
             quantize_peak_gb, "resident_gb":
@@ -658,11 +1056,14 @@ def phase_self_draft_int8(state):
 # ---------------------------------------------------------------------------
 # phase 7: the CLI, and the card against the CPU on the same weights
 # ---------------------------------------------------------------------------
-CLI_RUNS = (  # (mode, --quant, the kernels that run on that path)
-    ("pp", "none", ("flash_attention_lse",)),   # pp decodes without a tree
-    ("pipedec", "none", FP32_PATH),
-    ("pp", "int8", ("flash_attention_lse int8", "dequant_matmul")),
-    ("pipedec", "int8", INT8_PATH),
+CLI_RUNS = (  # (mode flags, --quant, the kernels that run on that path)
+    (("--mode", "pp"), "none", ("flash_attention_lse",)),  # no tree in pp
+    (("--mode", "pipedec"), "none", FP32_PATH),
+    (("--mode", "pipedec-db", "--paged"), "none", PAGED_PATH),
+    (("--mode", "pp"), "int8", ("flash_attention_lse int8",
+                                "dequant_matmul")),
+    (("--mode", "pipedec"), "int8", INT8_PATH),
+    (("--mode", "pipedec-db", "--paged"), "int8", PAGED_INT8_PATH),
 )
 
 
@@ -711,27 +1112,29 @@ def phase_cli(state):
     from repro_torch.configs import pipedec_pair
     from repro_torch.launch import serve
 
-    state.pop("target", None)
-    state.pop("target_int8", None)
+    for key in ("target", "draft", "target_int8", "draft_int8"):
+        state.pop(key, None)
     gc.collect()
     torch.cuda.empty_cache()
     ok = True
-    for mode, quant, used in CLI_RUNS:
+    for flags, quant, used in CLI_RUNS:
         buf = io.StringIO()
         zero_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            engine, res = serve.main(["--mode", mode, "--requests", "3",
+            engine, res = serve.main([*flags, "--requests", "3",
                                       "--new-tokens", "12", "--quant", quant])
         wall_s = time.perf_counter() - t0
-        launches, expect = read_launches(engine.target, engine.draft)
+        launches, expect = read_launches(engine.target, engine.draft,
+                                         paged="--paged" in flags)
         good = len(res) == 3 and all(
             len(r.tokens) == 13 and (r.tokens >= 0).all()
             and (r.tokens < pipedec_pair.TARGET_SMOKE.vocab_size).all()
             for r in res.values())
         good = good and launches_ok(launches, expect, used)
         ok = ok and good
-        emit({"phase": "cli", "mode": mode, "quant": quant, "ok": good,
+        emit({"phase": "cli", "flags": " ".join(flags), "quant": quant,
+              "ok": good,
               "wall_s": wall_s,
               "calls": {"target": dict(engine.target.calls),
                         "draft": dict(engine.draft.calls)
@@ -779,8 +1182,11 @@ def main() -> int:
     state, failed = {"launches": {}}, []
     for name, phase in (("kernels", phase_kernels), ("serve", phase_serve),
                         ("self-draft", phase_self_draft),
+                        ("serve-db", phase_serve_db),
+                        ("self-draft-db", phase_self_draft_db),
                         ("serve-int8", phase_serve_int8),
                         ("self-draft-int8", phase_self_draft_int8),
+                        ("serve-db-int8", phase_serve_db_int8),
                         ("cli", phase_cli)):
         t0 = time.perf_counter()
         try:
@@ -799,11 +1205,13 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches.get(name, 0),
                      "max_abs_err": s.get("max_abs_err"), "ms": s.get("ms"),
+                     "dense_ms": s.get("dense_ms"),
                      "plain_ms": s.get("plain_ms"),
                      "bound_ms": s.get("bound_ms"),
                      "bound_by": s.get("bound_by"),
                      "library_ms": s.get("library_ms"),
                      "case": s.get("case")})
+    print(smi[0] if smi else "nvidia-smi: no reading", flush=True)
     emit({"kernels": rows})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

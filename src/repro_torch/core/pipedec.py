@@ -18,8 +18,13 @@ Per timestep (paper 3.4, Fig. 2):
      (miss), and in-flight state is remapped or dropped to match.
 
 One request's loop state is a ``DecodeState`` and one timestep is
-``PipeDecEngine.step``, split into the phases the batched engine of a later
-slice (SpecPipe-DB) drives across requests.
+``PipeDecEngine.step``, split into the phases the batched engine
+(``serving.dynbatch.SpecPipeDBEngine``) drives across requests.  Its seams:
+``init_state`` takes recycled arena rows (``caches``) or hands the prefill
+to the executor that owns the arena (``prefill_fn``), and ``exit_apply``
+takes the cache sync and the prune remap as callbacks (``commit_caches``,
+``remap_caches``), which the batched engine defers to one batched call per
+timestep.
 """
 from __future__ import annotations
 
@@ -145,6 +150,10 @@ class DecodeState:
         """The committed tokens, first token included."""
         return np.asarray(self.committed[: 1 + self.max_new_tokens])
 
+    def caches(self) -> tuple:
+        """(t_cache, d_cache, t_tree, d_tree)."""
+        return (self.t_cache, self.d_cache, self.t_tree, self.d_tree)
+
 
 class PipeDecEngine:
     """Single-request SpecPipe engine: drives the dynamic token tree
@@ -165,23 +174,40 @@ class PipeDecEngine:
 
     def init_state(self, prompt: np.ndarray, max_new_tokens: int,
                    seed: int = 0, max_timesteps: Optional[int] = None, *,
-                   eos: Optional[int] = None,
-                   sampling: Optional[SamplingParams] = None) -> DecodeState:
+                   caches=None, eos: Optional[int] = None,
+                   sampling: Optional[SamplingParams] = None,
+                   prefill_fn=None) -> DecodeState:
         """Prefill both models and commit the first token.  ``seed`` seeds
-        the sampling generator (unused when greedy)."""
+        the sampling generator (unused when greedy).
+
+        ``caches`` supplies recycled (t_cache, d_cache, t_tree, d_tree)
+        batch-1 buffers (a KV arena's slot rows): prefill overwrites the
+        prompt's rows and every mask is bounded by ``model_len`` or the
+        ancestor mask, so a previous occupant's rows are never attended.
+        ``prefill_fn`` hands the prefill to an executor that owns the
+        arena: it takes the [1, len] prompt, fills both models' caches
+        there and returns the target's last-position logits; the state
+        then carries no caches of its own.  ``sampling`` overrides
+        ``pcfg.sampling`` for this request."""
         p = self.pcfg
         tgt, drf = self.target, self.draft
         sp = sampling if sampling is not None else p.sampling
         gen = torch.Generator(device=tgt.device)
         gen.manual_seed(seed)
-        tcap = self.tree_buffer_capacity
-        t_cache = tgt.init_cache(1, self.max_len)
-        d_cache = drf.init_cache(1, self.max_len)
-        t_tree = tgt.init_tree_caches(1, tcap)
-        d_tree = drf.init_tree_caches(1, tcap)
         prompt_b = np.asarray(prompt, np.int64)[None]
-        t_logits, t_cache = tgt.prefill(prompt_b, t_cache)
-        _, d_cache = drf.prefill(prompt_b, d_cache)
+        if prefill_fn is not None:
+            t_cache = d_cache = t_tree = d_tree = None
+            t_logits = prefill_fn(prompt_b)
+        else:
+            if caches is None:
+                tcap = self.tree_buffer_capacity
+                caches = (tgt.init_cache(1, self.max_len),
+                          drf.init_cache(1, self.max_len),
+                          tgt.init_tree_caches(1, tcap),
+                          drf.init_tree_caches(1, tcap))
+            t_cache, d_cache, t_tree, d_tree = caches
+            t_logits, t_cache = tgt.prefill(prompt_b, t_cache)
+            _, d_cache = drf.prefill(prompt_b, d_cache)
 
         first = select_token(t_logits[0], sp, gen)
         st = DecodeState(
@@ -265,18 +291,21 @@ class PipeDecEngine:
         return None
 
     # ---- phase 2b: exit-commit (token, prune, remap) -----------------
-    def exit_apply(self, st: DecodeState, fl: Flight, root_row: int) -> int:
+    def exit_apply(self, st: DecodeState, fl: Flight, root_row: int, *,
+                   commit_caches=None, remap_caches=None) -> int:
         """Commit the root's token, sync the caches and prune or restart
-        the tree.  Returns the number of commits (1)."""
+        the tree.  The cache work is delegated when the callbacks are
+        given: ``commit_caches(st)`` moves tree row 0 into the model caches
+        at ``st.model_len`` (two-level cache sync, 3.4.3) and
+        ``remap_caches(st, index_map)`` compacts the tree caches after a
+        prune; by default the request's own caches are updated.  Returns
+        the number of commits (1)."""
         p = self.pcfg
         sp = st.sampling if st.sampling is not None else p.sampling
         x = select_token(fl.logits[root_row], sp, st.generator)
         st.committed.append(x)
         st.stats.commits += 1
-        st.t_cache = self.target.commit(st.t_cache, st.t_tree, 0,
-                                        st.model_len)
-        st.d_cache = self.draft.commit(st.d_cache, st.d_tree, 0,
-                                       st.model_len)
+        (commit_caches or self._commit_own_caches)(st)
         st.model_len += 1
         if st.eos is not None and x == st.eos:
             st.eos_hit = True
@@ -285,8 +314,7 @@ class PipeDecEngine:
         if hit >= 0:
             st.stats.hits += 1
             st.tree, index_map = tree_lib.tree_prune_to_child(st.tree, hit)
-            st.t_tree = remap_tree_caches(st.t_tree, index_map, p.capacity)
-            st.d_tree = remap_tree_caches(st.d_tree, index_map, p.capacity)
+            (remap_caches or self._remap_own_caches)(st, index_map)
             imap = index_map.numpy()
             for f2 in st.flights:
                 f2.node_idx = remap_flight_indices(f2.node_idx, imap)
@@ -300,6 +328,18 @@ class PipeDecEngine:
             st.last_draft = None
             st.pending = True
         return 1
+
+    # default cache plumbing: the request owns its caches (B = 1)
+    def _commit_own_caches(self, st: DecodeState) -> None:
+        st.t_cache = self.target.commit(st.t_cache, st.t_tree, 0,
+                                        st.model_len)
+        st.d_cache = self.draft.commit(st.d_cache, st.d_tree, 0,
+                                       st.model_len)
+
+    def _remap_own_caches(self, st: DecodeState, index_map) -> None:
+        cap = self.pcfg.capacity
+        st.t_tree = remap_tree_caches(st.t_tree, index_map, cap)
+        st.d_tree = remap_tree_caches(st.d_tree, index_map, cap)
 
     def step(self, st: DecodeState) -> DecodeState:
         """Advance one pipeline timestep: gather-entry -> verify (target

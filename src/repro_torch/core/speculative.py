@@ -1,9 +1,11 @@
 """Draft-propose / target-verify machinery of the port's PipeDec engine.
 
 ``ModelBundle`` wraps a ``Transformer`` with the step functions the engines
-call (prefill, decode, tree verify, commit, cache construction) and counts
-its calls by name in ``calls``, the hook that tests and the chip smoke run
-use to tie kernel launches to model steps.
+call (prefill, decode, tree verify, commit, cache construction, and the
+SpecPipe-DB engine's batched ``tree_verify_rows`` / ``commit_rows`` over
+slot-stacked arenas) and counts its calls by name in ``calls``, the hook
+that tests and the chip smoke run use to tie kernel launches to model
+steps.
 
 Token selection at commit time follows the paper: greedy takes the argmax
 of the target's logits at the accepted node; stochastic samples from the
@@ -93,10 +95,35 @@ class ModelBundle:
                                    tree_mask, cache, cache_len, tree_caches,
                                    tree_write_index)
 
+    def tree_verify_rows(self, node_tokens, node_positions, tree_mask,
+                         cache, cache_len, tree_caches, tree_write_index, *,
+                         bucket: int):
+        """One fused tree verify over the first ``bucket`` slot rows of
+        slot-stacked arenas (SpecPipe-DB): row b is slot b's deepest tree
+        layer, bounded by its own ``cache_len[b]`` and ancestor mask and
+        written at its own ``tree_write_index[b]``.  The arenas are sliced
+        into views (paged leaves into table slices over their pools) and
+        reach the layers as they are, so the tree rows land in the arena
+        in place.  Returns (logits [bucket,n,V], tree_caches)."""
+        self.calls["tree_verify_rows"] += 1
+        logits, _ = tf.tree_verify_step(
+            self.model, node_tokens, node_positions, tree_mask,
+            tf.slice_cache_rows(cache, 0, bucket), cache_len,
+            tf.slice_cache_rows(tree_caches, 0, bucket), tree_write_index)
+        return logits, tree_caches
+
     def commit(self, cache, tree_caches, node_idx: int, model_len: int):
         """Move tree row ``node_idx`` into the model cache at ``model_len``."""
         self.calls["commit"] += 1
         return tf.commit_tree_node(cache, tree_caches, node_idx, model_len)
+
+    def commit_rows(self, cache, tree_caches, node_idx, model_len,
+                    commit_mask):
+        """Batched per-row two-level cache sync over slot-stacked arenas
+        (rows whose ``commit_mask`` is False stay bit-unchanged)."""
+        self.calls["commit_rows"] += 1
+        return tf.commit_tree_nodes(cache, tree_caches, node_idx, model_len,
+                                    commit_mask)
 
     def init_cache(self, batch: int, max_len: int):
         """Zeroed model KV cache on the model's device."""

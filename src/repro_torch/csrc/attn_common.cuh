@@ -1,10 +1,12 @@
 // Shared pieces of the port's two attention kernels
-// (flash_attention_lse.cu, tree_block_attention.cu).
+// (flash_attention_lse.cu, tree_block_attention.cu), in their dense and
+// paged modes.
 //
 // Work split.  A CTA owns a set of "rows": (query, query-head) pairs that
 // share one KV head (GQA), so every K/V tile it stages in shared memory is
 // read from device memory once for the whole group.  Each warp owns
-// kRowsPerWarp rows.  K/V stream through shared memory kBK keys at a time;
+// kRowsPerWarp rows.  K/V stream through shared memory kBK keys at a time
+// (a key functor, DenseKeys or PagedKeys, says where each key's row is);
 // in a tile, lane j scores key j against the warp's rows, the warp reduces
 // max and sum with shuffles, and the P.V product gives each lane
 // kDimsPerLane output columns (head_dim <= 128).  Arithmetic is fp32 FMA
@@ -101,19 +103,62 @@ __device__ __forceinline__ void stage_q(const float* __restrict__ q,
 // Loads a thread keeps in flight per tensor while staging a tile.
 constexpr int kStage = 8;
 
-// Copy keys [t0, t0 + tl) of one (batch, kv-head) fp32 K and V into
-// shared memory.  k/v point at key 0; keys are `ksl` floats apart,
-// head_dim contiguous, so consecutive threads read consecutive addresses.
-// With `vec` (16-byte aligned rows, head_dim a multiple of 4) each thread
-// reads 16 bytes at a time, and issues up to kStage reads of K and of V
-// before its first shared-memory store, so their latencies overlap.  The
-// scale arguments are unused: fp32 rows carry none.
+// Where key j of the tile starting at logical key t0 lives, in elements
+// from the (batch, kv-head) base pointers: `kv(j)` for K/V, `sc(j)` for
+// the int8 scales.  A dense cache keeps key t at row t (`kl`/`sl`
+// elements apart).
+struct DenseKeys {
+  int t0;
+  long long kl, sl;
+  __device__ __forceinline__ long long kv(int j) const {
+    return (long long)(t0 + j) * kl;
+  }
+  __device__ __forceinline__ long long sc(int j) const {
+    return (long long)(t0 + j) * sl;
+  }
+};
+
+// A block-paged cache keeps logical key t in row t % page of physical
+// block table[t / page] of a pool whose blocks are `kb` (K/V) and `sb`
+// (scales) elements apart and whose rows are `kl` and `sl` apart.  `blk`
+// holds the tile's physical block per key, read from the block table once
+// per tile into shared memory (stage_blocks) before the tile's loads.
+struct PagedKeys {
+  const int* blk;
+  int t0, page;
+  long long kb, kl, sb, sl;
+  __device__ __forceinline__ long long kv(int j) const {
+    return (long long)blk[j] * kb + (long long)((t0 + j) % page) * kl;
+  }
+  __device__ __forceinline__ long long sc(int j) const {
+    return (long long)blk[j] * sb + (long long)((t0 + j) % page) * sl;
+  }
+};
+
+// Read the physical block of keys [t0, t0 + tl) of one batch row's block
+// table `trow` into `blk` (tl <= kBK <= blockDim.x).  The caller
+// synchronises before the tile's loads read it.
+__device__ __forceinline__ void stage_blocks(const int* __restrict__ trow,
+                                             int page, int t0, int tl,
+                                             int* blk) {
+  const int j = threadIdx.x;
+  if (j < tl) blk[j] = trow[(t0 + j) / page];
+}
+
+// Copy the tile's `tl` keys of one (batch, kv-head) fp32 K and V into
+// shared memory.  k/v point at the (batch, kv-head) base and `keys` says
+// where each key's row starts; head_dim is contiguous, so consecutive
+// threads read consecutive addresses.  With `vec` (16-byte aligned rows,
+// head_dim a multiple of 4) each thread reads 16 bytes at a time, and
+// issues up to kStage reads of K and of V before its first shared-memory
+// store, so their latencies overlap.  The scale arguments are unused:
+// fp32 rows carry none.
+template <class Keys>
 __device__ __forceinline__ void load_tile(const float* __restrict__ k,
                                           const float* __restrict__ v,
                                           const float*, const float*,
-                                          long long ksl, long long, int t0,
-                                          int tl, int hd, bool vec,
-                                          float* ks, float* vs) {
+                                          const Keys& keys, int tl, int hd,
+                                          bool vec, float* ks, float* vs) {
   const int width = vec ? 4 : 1;
   const int per_row = hd / width;
   const int total = tl * per_row;
@@ -125,7 +170,7 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ k,
       if (i < total) {
         const int j = i / per_row;
         const int d = (i - j * per_row) * width;
-        const long long gi = (long long)(t0 + j) * ksl + d;
+        const long long gi = keys.kv(j) + d;
         if (vec) {
           kr[u] = *reinterpret_cast<const float4*>(k + gi);
           vr[u] = *reinterpret_cast<const float4*>(v + gi);
@@ -168,24 +213,25 @@ __device__ __forceinline__ float4 dequant4(uint32_t w, float s) {
   return f;
 }
 
-// The int8 twin: keys [t0, t0 + tl) of int8 K and V with their per-row
-// scales (`ksc`/`vsc` point at key 0's scale, keys `ssl` floats apart),
-// dequantized into the same fp32 tiles.  With `vec` (16-byte aligned rows,
-// head_dim a multiple of 16) each thread reads 16 int8 values at a time; a
-// target row (head_dim 128) is 8 such reads, a draft row (64) is 4.
+// The int8 twin: the tile's keys of int8 K and V with their per-row
+// scales (`ksc`/`vsc` point at the (batch, kv-head) base of the scales,
+// `keys.sc` places each key's scale), dequantized into the same fp32
+// tiles.  With `vec` (16-byte aligned rows, head_dim a multiple of 16)
+// each thread reads 16 int8 values at a time; a target row (head_dim 128)
+// is 8 such reads, a draft row (64) is 4.
+template <class Keys>
 __device__ __forceinline__ void load_tile(const int8_t* __restrict__ k,
                                           const int8_t* __restrict__ v,
                                           const float* __restrict__ ksc,
                                           const float* __restrict__ vsc,
-                                          long long ksl, long long ssl,
-                                          int t0, int tl, int hd, bool vec,
-                                          float* ks, float* vs) {
+                                          const Keys& keys, int tl, int hd,
+                                          bool vec, float* ks, float* vs) {
   if (!vec) {
     for (int i = threadIdx.x; i < tl * hd; i += blockDim.x) {
       const int j = i / hd;
       const int d = i - j * hd;
-      const long long gi = (long long)(t0 + j) * ksl + d;
-      const long long si = (long long)(t0 + j) * ssl;
+      const long long gi = keys.kv(j) + d;
+      const long long si = keys.sc(j);
       ks[j * (hd + 1) + d] = (float)k[gi] * ksc[si];
       vs[j * hd + d] = (float)v[gi] * vsc[si];
     }
@@ -202,8 +248,8 @@ __device__ __forceinline__ void load_tile(const int8_t* __restrict__ k,
       if (i < total) {
         const int j = i / per_row;
         const int d = (i - j * per_row) * 16;
-        const long long gi = (long long)(t0 + j) * ksl + d;
-        const long long si = (long long)(t0 + j) * ssl;
+        const long long gi = keys.kv(j) + d;
+        const long long si = keys.sc(j);
         kr[u] = *reinterpret_cast<const uint4*>(k + gi);
         vr[u] = *reinterpret_cast<const uint4*>(v + gi);
         kscale[u] = ksc[si];
@@ -340,8 +386,10 @@ __device__ __forceinline__ void store_rows(const Rows& st, int row0, int rows,
 // than the default 48 KB (a launch over the limit is refused and never
 // runs).  The limit only grows, so the attribute is set at the first launch
 // of each larger size and not again (nor while a CUDA graph captures).
-template <class Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+// The kernel is a template argument so that each kernel keeps its own
+// record (two kernels of one signature would otherwise share it).
+template <auto kernel>
+inline cudaError_t allow_smem(size_t bytes) {
   static size_t granted = 48 * 1024;
   if (bytes <= granted) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(

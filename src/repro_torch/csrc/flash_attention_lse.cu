@@ -1,10 +1,11 @@
 // flash_attention_lse: GQA attention over a dense fp32 or int8 KV cache,
 // returning the normalised output and its log-sum-exp stats (m, l).
 //
-// Replaces the JAX package's Pallas kernel repro/kernels/flash.py
-// (flash_attention_lse, body _flash_kernel).  One kernel serves three call
-// sites of the port: the committed-prefix half of tree verification,
-// decode (n = 1) and causal prefill.
+// Replaces the JAX package's Pallas kernels repro/kernels/flash.py
+// (flash_attention_lse, body _flash_kernel) and, in its paged mode,
+// repro/kernels/paged.py (paged_flash_attention_lse).  One kernel serves
+// three call sites of the port: the committed-prefix half of tree
+// verification, decode (n = 1) and causal prefill.
 //
 //   q     [B, H, n, hd] fp32, any strides with head_dim contiguous
 //   k, v  [B, KV, L, hd] fp32 or int8 views, any strides with head_dim
@@ -27,6 +28,22 @@
 // query tile.  Keys past the CTA's last valid key (kv_len, or the causal
 // bound of its last query) are never read.
 //
+// Paged mode (paged_flash_attention_lse_launch): K/V (and the int8
+// scales) live in a block pool read through a per-row block table:
+//   k, v  pools viewed as [Nb, KV, page, hd], any strides with head_dim
+//         contiguous (the port passes its flat [Nb*page, KV, hd] pools as
+//         such views, with no copy); k_scale, v_scale [Nb, KV, page]
+//   table [B, mb] int32: logical key t of row b is row t % page of
+//         physical block table[b, t / page]; L = mb * page
+// The tile loop, the tile size (kBK keys), the masks and the summation
+// order are the dense kernel's; only the address of a key changes.  Each
+// tile's physical blocks are read from the table once, into shared
+// memory, before its loads.  So the paged kernel over a pool gives the
+// same bits as the dense kernel over the gathered view.  Masking stays
+// logical: a key is attended only by its logical position (kv_len,
+// causal, window); unallocated logical blocks alias physical block 0 (the
+// null block) and lie at or past kv_len, so they are never read.
+//
 // What bounds it on an H100: bytes.  At the main path's shapes (B = 1, a
 // few hundred cached keys, 8 KV heads of 128) a launch moves about 2 MB in
 // fp32 (a quarter of the K/V bytes in int8, plus 4 bytes of scale per row
@@ -43,18 +60,22 @@ using namespace attn;
 
 namespace {
 
-template <class Elem>
+// kPaged: k/v (and the scales) are pools read through `table` [B, mb],
+// and ksb/ssb are their block strides; otherwise ksb/ssb are batch
+// strides and `table` is unused.
+template <class Elem, bool kPaged>
 __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
     const float* __restrict__ q, long long qsb, long long qsh, long long qsn,
     const Elem* __restrict__ k, const Elem* __restrict__ v, long long ksb,
     long long ksh, long long ksl, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, long long ssb, long long ssh,
-    long long ssl, const int* __restrict__ kv_len,
-    const int* __restrict__ qpos, float* __restrict__ o,
-    float* __restrict__ m_out, float* __restrict__ l_out, int H, int n, int L,
-    int hd, int rep, int bq, int causal, int window, float scale,
-    int vec) {
+    long long ssl, const int* __restrict__ table, int mb, int page,
+    const int* __restrict__ kv_len, const int* __restrict__ qpos,
+    float* __restrict__ o, float* __restrict__ m_out,
+    float* __restrict__ l_out, int H, int n, int L, int hd, int rep, int bq,
+    int causal, int window, float scale, int vec) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ int blk[kBK];
   const int nwarps = blockDim.x >> 5;
   const int rows_cap = nwarps * kRowsPerWarp;
   float* qs = smem;
@@ -87,15 +108,26 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
   }
   __syncthreads();
 
-  const Elem* kb = k + b * ksb + g * ksh;
-  const Elem* vb = v + b * ksb + g * ksh;
-  const float* ksc = k_scale ? k_scale + b * ssb + g * ssh : nullptr;
-  const float* vsc = v_scale ? v_scale + b * ssb + g * ssh : nullptr;
+  const long long kbase = (kPaged ? 0 : b * ksb) + g * ksh;
+  const long long sbase = (kPaged ? 0 : b * ssb) + g * ssh;
+  const Elem* kb = k + kbase;
+  const Elem* vb = v + kbase;
+  const float* ksc = k_scale ? k_scale + sbase : nullptr;
+  const float* vsc = v_scale ? v_scale + sbase : nullptr;
+  const int* trow = kPaged ? table + (long long)b * mb : nullptr;
   Rows st;
   st.init();
   for (int t0 = 0; t0 < end; t0 += kBK) {
     const int tl = min(kBK, end - t0);
-    load_tile(kb, vb, ksc, vsc, ksl, ssl, t0, tl, hd, vec != 0, ks, vs);
+    if constexpr (kPaged) {
+      stage_blocks(trow, page, t0, tl, blk);
+      __syncthreads();
+      load_tile(kb, vb, ksc, vsc, PagedKeys{blk, t0, page, ksb, ksl, ssb, ssl},
+                tl, hd, vec != 0, ks, vs);
+    } else {
+      load_tile(kb, vb, ksc, vsc, DenseKeys{t0, ksl, ssl}, tl, hd, vec != 0,
+                ks, vs);
+    }
     __syncthreads();
     update(st, qs + row0 * hd, ks, vs, hd, tl, [&](int r, int j) {
       const int kp = t0 + j;
@@ -107,6 +139,51 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
     __syncthreads();
   }
   store_rows(st, row0, rows, b, g, q0, rep, H, n, hd, o, m_out, l_out);
+}
+
+template <bool kPaged>
+int launch(const void* q, long long qsb, long long qsh, long long qsn,
+           const void* k, const void* v, long long ksb, long long ksh,
+           long long ksl, const void* k_scale, const void* v_scale,
+           long long ssb, long long ssh, long long ssl, const void* table,
+           int mb, int page, const void* kv_len, const void* qpos, void* o,
+           void* m, void* l, int B, int H, int KV, int n, int L, int hd,
+           int bq, int causal, int window, float scale, void* stream) {
+  if (B < 1 || KV < 1 || H % KV != 0 || n < 1 || bq < 1 || hd < 1 ||
+      hd > kMaxHeadDim || B > 65535 || KV > 65535 ||
+      (k_scale == nullptr) != (v_scale == nullptr) ||
+      (kPaged && (table == nullptr || mb < 1 || page < 1 || L > mb * page))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rep = H / KV;
+  const int rows_cap = bq * rep;
+  if (rows_cap > kMaxRows) return (int)cudaErrorInvalidValue;
+  const int nwarps = (rows_cap + kRowsPerWarp - 1) / kRowsPerWarp;
+  const size_t smem = smem_bytes(nwarps, hd);
+  dim3 grid((n + bq - 1) / bq, KV, B);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k_scale == nullptr) {
+    cudaError_t err =
+        allow_smem<flash_attention_lse_kernel<float, kPaged>>(smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_lse_kernel<float, kPaged><<<grid, nwarps * 32, smem, s>>>(
+        (const float*)q, qsb, qsh, qsn, (const float*)k, (const float*)v, ksb,
+        ksh, ksl, nullptr, nullptr, 0, 0, 0, (const int*)table, mb, page,
+        (const int*)kv_len, (const int*)qpos, (float*)o, (float*)m, (float*)l,
+        H, n, L, hd, rep, bq, causal, window, scale,
+        (int)can_vec(k, v, ksb, ksh, ksl, hd, 4));
+  } else {
+    cudaError_t err =
+        allow_smem<flash_attention_lse_kernel<int8_t, kPaged>>(smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_lse_kernel<int8_t, kPaged><<<grid, nwarps * 32, smem, s>>>(
+        (const float*)q, qsb, qsh, qsn, (const int8_t*)k, (const int8_t*)v,
+        ksb, ksh, ksl, (const float*)k_scale, (const float*)v_scale, ssb, ssh,
+        ssl, (const int*)table, mb, page, (const int*)kv_len,
+        (const int*)qpos, (float*)o, (float*)m, (float*)l, H, n, L, hd, rep,
+        bq, causal, window, scale, (int)can_vec(k, v, ksb, ksh, ksl, hd, 1));
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -122,35 +199,24 @@ extern "C" int flash_attention_lse_launch(
     long long ssl, const void* kv_len, const void* qpos, void* o, void* m,
     void* l, int B, int H, int KV, int n, int L, int hd, int bq, int causal,
     int window, float scale, void* stream) {
-  if (B < 1 || KV < 1 || H % KV != 0 || n < 1 || bq < 1 || hd < 1 ||
-      hd > kMaxHeadDim || B > 65535 || KV > 65535 ||
-      (k_scale == nullptr) != (v_scale == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int rep = H / KV;
-  const int rows_cap = bq * rep;
-  if (rows_cap > kMaxRows) return (int)cudaErrorInvalidValue;
-  const int nwarps = (rows_cap + kRowsPerWarp - 1) / kRowsPerWarp;
-  const size_t smem = smem_bytes(nwarps, hd);
-  dim3 grid((n + bq - 1) / bq, KV, B);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (k_scale == nullptr) {
-    cudaError_t err = allow_smem(flash_attention_lse_kernel<float>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_lse_kernel<float><<<grid, nwarps * 32, smem, s>>>(
-        (const float*)q, qsb, qsh, qsn, (const float*)k, (const float*)v, ksb,
-        ksh, ksl, nullptr, nullptr, 0, 0, 0, (const int*)kv_len,
-        (const int*)qpos, (float*)o, (float*)m, (float*)l, H, n, L, hd, rep,
-        bq, causal, window, scale, (int)can_vec(k, v, ksb, ksh, ksl, hd, 4));
-  } else {
-    cudaError_t err = allow_smem(flash_attention_lse_kernel<int8_t>, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_lse_kernel<int8_t><<<grid, nwarps * 32, smem, s>>>(
-        (const float*)q, qsb, qsh, qsn, (const int8_t*)k, (const int8_t*)v,
-        ksb, ksh, ksl, (const float*)k_scale, (const float*)v_scale, ssb, ssh,
-        ssl, (const int*)kv_len, (const int*)qpos, (float*)o, (float*)m,
-        (float*)l, H, n, L, hd, rep, bq, causal, window, scale,
-        (int)can_vec(k, v, ksb, ksh, ksl, hd, 1));
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(q, qsb, qsh, qsn, k, v, ksb, ksh, ksl, k_scale, v_scale,
+                       ssb, ssh, ssl, nullptr, 0, 0, kv_len, qpos, o, m, l, B,
+                       H, KV, n, L, hd, bq, causal, window, scale, stream);
+}
+
+// The paged mode: k/v are pools [Nb, KV, page, hd] given by their block,
+// head and row strides (ksb, ksh, ksl), the scales likewise (ssb, ssh,
+// ssl), and `table` [B, mb] int32 is contiguous; L = mb * page logical
+// keys.  Every table entry must be a block of the pool.
+extern "C" int paged_flash_attention_lse_launch(
+    const void* q, long long qsb, long long qsh, long long qsn, const void* k,
+    const void* v, long long ksb, long long ksh, long long ksl,
+    const void* k_scale, const void* v_scale, long long ssb, long long ssh,
+    long long ssl, const void* table, int mb, int page, const void* kv_len,
+    const void* qpos, void* o, void* m, void* l, int B, int H, int KV, int n,
+    int hd, int bq, int causal, int window, float scale, void* stream) {
+  return launch<true>(q, qsb, qsh, qsn, k, v, ksb, ksh, ksl, k_scale, v_scale,
+                      ssb, ssh, ssl, table, mb, page, kv_len, qpos, o, m, l, B,
+                      H, KV, n, mb * page, hd, bq, causal, window, scale,
+                      stream);
 }

@@ -24,7 +24,7 @@ KERNELS = ("flash_attention_lse", "tree_block_attention", "dequant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Loaded launch functions by kernel name.  A loaded shared library lives as
+# Loaded launch functions by symbol.  A loaded shared library lives as
 # long as the process, so this cache is process-wide by nature.
 _LAUNCHERS: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -89,17 +89,20 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return reports
 
 
-def launcher(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C launch function ``<name>_launch``, built and loaded on first
-    use.  It returns a ``cudaError_t``; 0 means the launch was accepted."""
-    fn = _LAUNCHERS.get(name)
+def launcher(name: str, argtypes: Sequence,
+             symbol: str = "") -> ctypes._CFuncPtr:
+    """The C launch function ``symbol`` (default ``<name>_launch``) of
+    kernel source ``name``, built and loaded on first use.  It returns a
+    ``cudaError_t``; 0 means the launch was accepted."""
+    symbol = symbol or f"{name}_launch"
+    fn = _LAUNCHERS.get(symbol)
     if fn is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, f"{name}_launch")
+        fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _LAUNCHERS[name] = fn
+        _LAUNCHERS[symbol] = fn
     return fn
 
 

@@ -15,6 +15,10 @@ int8 paths: per-row ``k_scale``/``v_scale`` side tensors mark K/V as
 symmetric int8 (the int8 serving cache) and select the kernels' int8
 mode; ``quant_matmul`` applies a quantized projection weight through the
 ``dequant_matmul`` kernel.
+
+Paged paths (``paged_tree_attention``, ``paged_decode_attention``): K/V
+live in block pools ``[Nb, KV, page, hd]`` read through per-row block
+tables ``[B, mb]`` by the paged kernels (``paged``), with no dense copy.
 """
 from __future__ import annotations
 
@@ -24,11 +28,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash import flash_attention_lse, rows_i32
+from repro_torch.kernels.paged import (paged_flash_attention_lse,
+                                       paged_tree_block_attention)
 from repro_torch.kernels.quant import dequant_matmul
 from repro_torch.kernels.tree_block import tree_block_attention
 
 __all__ = ["combine_lse", "tree_attention", "decode_attention",
-           "prefill_attention", "dequant_matmul", "quant_matmul"]
+           "prefill_attention", "paged_tree_attention",
+           "paged_decode_attention", "dequant_matmul", "quant_matmul"]
 
 MIN_L = 1e-30
 
@@ -76,6 +83,42 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None,
     o, _, _ = flash_attention_lse(q, k, v, kv, qpos, k_scale=k_scale,
                                   v_scale=v_scale, scale=scale,
                                   window=window)
+    return o.to(q.dtype)
+
+
+def paged_tree_attention(q, k_pool, v_pool, table, kt_pool, vt_pool,
+                         t_table, tree_mask, past_len, *,
+                         scale: Optional[float] = None, window: int = 0,
+                         qpos=None, k_scale=None, v_scale=None,
+                         kt_scale=None, vt_scale=None):
+    """Two-level tree attention over paged caches: the committed prefix in
+    pools ``k/v_pool`` [Nb,KV,page,hd] through ``table`` [B,mb]
+    (``past_len`` valid rows per batch row, optional ``window`` against
+    ``qpos``) and the tree buffer in pools ``kt/vt_pool`` through
+    ``t_table`` (ancestor mask ``[n,T]`` or ``[B,n,T]``), merged by
+    ``combine_lse``.  int8 pools pass their scale pools [Nb,KV,page].
+    Returns [B,H,n,hd]."""
+    past = paged_flash_attention_lse(q, k_pool, v_pool, table, past_len,
+                                     qpos, k_scale=k_scale, v_scale=v_scale,
+                                     scale=scale, window=window)
+    tree = paged_tree_block_attention(q, kt_pool, vt_pool, t_table,
+                                      tree_mask, k_scale=kt_scale,
+                                      v_scale=vt_scale, scale=scale)
+    return combine_lse([past, tree]).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, table, kv_len, *,
+                           scale: Optional[float] = None, window: int = 0,
+                           k_scale=None, v_scale=None):
+    """Decode over a paged KV cache: q [B,H,n,hd] at position ``kv_len -
+    1`` of its batch row; pools [Nb,KV,page,hd] through ``table`` [B,mb]
+    with ``kv_len`` (int or [B]) valid rows.  Returns [B,H,n,hd]."""
+    b, _, n, _ = q.shape
+    kv = rows_i32(kv_len, b, q.device)
+    qpos = (kv - 1)[:, None].expand(b, n)
+    o, _, _ = paged_flash_attention_lse(q, k_pool, v_pool, table, kv, qpos,
+                                        k_scale=k_scale, v_scale=v_scale,
+                                        scale=scale, window=window)
     return o.to(q.dtype)
 
 

@@ -1,8 +1,8 @@
 """Plain PyTorch oracles of the attention paths, as the JAX package's
 ``repro/kernels/ref.py`` writes them: masked scores are -inf and the
 softmax is taken over the concatenated sources.  They hold the kernels'
-plain versions to the reference semantics; the paged oracles arrive with
-their slice.
+plain versions to the reference semantics, the paged oracles included
+(gather the dense view through the block table, then the dense oracle).
 """
 from __future__ import annotations
 
@@ -89,3 +89,54 @@ def decode_attention_quant_ref(q, k, v, kv_len, *, k_scale, v_scale,
     per-row fp32 scales [B,KV,Lmax], dequantized then scored in fp32."""
     return decode_attention_ref(q, _dequant(k, k_scale), _dequant(v, v_scale),
                                 kv_len, window=window, scale=scale)
+
+
+def paged_gather_ref(pool, table, length: int):
+    """Dense view of a paged pool: pool [Nb, KV, page, hd] (or scales
+    [Nb, KV, page]) gathered through ``table`` [B, mb] into
+    [B, KV, length, ...]; unallocated logical blocks read physical block 0,
+    the null block, whose rows every mask excludes."""
+    page = pool.shape[2]
+    ls = torch.arange(length, device=pool.device)
+    blk = torch.as_tensor(table, device=pool.device).long()[:, ls // page]
+    g = pool[blk]                                     # [B, L, KV, page, ...]
+    r = (ls % page).reshape(1, length, 1, 1, *([1] * (g.dim() - 4)))
+    r = r.expand(*g.shape[:3], 1, *g.shape[4:])
+    g = torch.take_along_dim(g, r, dim=3).squeeze(3)  # [B, L, KV, ...]
+    return g.movedim(1, 2)                            # [B, KV, L, ...]
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, table, kv_len, *,
+                               k_scale=None, v_scale=None, window: int = 0,
+                               scale=None):
+    """Paged flash-decode reference: the dense view gathered through the
+    block table, then the dense reference (dequantized when scales are
+    given)."""
+    length = table.shape[1] * k_pool.shape[2]
+    k = paged_gather_ref(k_pool, table, length)
+    v = paged_gather_ref(v_pool, table, length)
+    if k_scale is not None:
+        k = _dequant(k, paged_gather_ref(k_scale, table, length))
+        v = _dequant(v, paged_gather_ref(v_scale, table, length))
+    return decode_attention_ref(q, k, v, kv_len, window=window, scale=scale)
+
+
+def paged_tree_attention_ref(q, k_pool, v_pool, table, kt_pool, vt_pool,
+                             t_table, tree_mask, past_len, *, k_scale=None,
+                             v_scale=None, kt_scale=None, vt_scale=None,
+                             scale=None):
+    """Paged two-level tree attention reference: both halves gathered dense
+    through their tables, then the joint-softmax reference."""
+    lp = table.shape[1] * k_pool.shape[2]
+    tcap = tree_mask.shape[-1]
+    kp = paged_gather_ref(k_pool, table, lp)
+    vp = paged_gather_ref(v_pool, table, lp)
+    kt = paged_gather_ref(kt_pool, t_table, tcap)
+    vt = paged_gather_ref(vt_pool, t_table, tcap)
+    if k_scale is not None:
+        kp = _dequant(kp, paged_gather_ref(k_scale, table, lp))
+        vp = _dequant(vp, paged_gather_ref(v_scale, table, lp))
+        kt = _dequant(kt, paged_gather_ref(kt_scale, t_table, tcap))
+        vt = _dequant(vt, paged_gather_ref(vt_scale, t_table, tcap))
+    return tree_attention_ref(q, kp, vp, kt, vt, tree_mask, past_len,
+                              scale=scale)

@@ -12,14 +12,20 @@ kernel name; writes the Chrome trace to ``--trace``.  The idle share is
 taken against the plain wall time, since the profiler itself slows the
 host; the share against the profiled wall time is printed beside it.
 ``--quant int8`` profiles the int8 serving path (both bundles quantized).
+``--mode pipedec-db`` profiles SpecPipe-DB timesteps instead: DB_SLOTS
+requests admitted at once on the local executor (``--paged`` for the
+block-paged arena, whose tree verify runs the paged kernels), so every
+profiled timestep runs at occupancy DB_SLOTS.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--quant int8]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      [--quant int8] [--mode pipedec-db [--paged]]
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import dataclasses
+import functools
 import json
 import time
 from pathlib import Path
@@ -34,8 +40,10 @@ from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.serving import LocalFusedExecutor, Request, SpecPipeDBEngine
 
 TARGET_LAYERS, STAGES, PROMPT_LEN, WARMUP, STEPS = 8, 8, 64, 8, 16
+DB_SLOTS, DB_PROMPT_LENS, MAX_LEN = 3, (64, 96, 80), 512
 
 
 def _emit(obj) -> None:
@@ -43,12 +51,18 @@ def _emit(obj) -> None:
 
 
 def main(argv=None) -> None:
-    """Profile STEPS PipeDec timesteps at full width."""
+    """Profile STEPS PipeDec (or SpecPipe-DB) timesteps at full width."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.profile_serve")
     ap.add_argument("--trace", default="build/profile/profile_serve_trace.json")
     ap.add_argument("--quant", choices=["none", "int8"], default="none")
+    ap.add_argument("--mode", choices=["pipedec", "pipedec-db"],
+                    default="pipedec")
+    ap.add_argument("--paged", action="store_true",
+                    help="pipedec-db: the block-paged arena (16-row pages)")
     args = ap.parse_args(argv)
+    if args.paged and args.mode != "pipedec-db":
+        ap.error("--paged needs --mode pipedec-db")
 
     dev = resolve_device("cuda")
     tcfg = dataclasses.replace(pipedec_pair.TARGET,
@@ -60,21 +74,39 @@ def main(argv=None) -> None:
                                       device=dev))
     if args.quant == "int8":
         draft = draft.quantize()
-    eng = PipeDecEngine(target, draft,
-                        PipeDecConfig(n_stages=STAGES, width=8, branch=4),
-                        max_len=512)
-    prompt = np.random.default_rng(0).integers(
-        0, tcfg.vocab_size, size=PROMPT_LEN)
+    pcfg = PipeDecConfig(n_stages=STAGES, width=8, branch=4)
+    rng = np.random.default_rng(0)
     n_steps = WARMUP + 2 * STEPS
-    st = eng.init_state(prompt, max_new_tokens=n_steps,
-                        max_timesteps=n_steps + 1)
+    if args.mode == "pipedec":
+        eng = PipeDecEngine(target, draft, pcfg, max_len=MAX_LEN)
+        st = eng.init_state(rng.integers(0, tcfg.vocab_size,
+                                         size=PROMPT_LEN),
+                            max_new_tokens=n_steps,
+                            max_timesteps=n_steps + 1)
+
+        def step():
+            eng.step(st)
+    else:
+        ex = LocalFusedExecutor(target, draft, slots=DB_SLOTS,
+                                max_len=MAX_LEN,
+                                tree_capacity=pcfg.tree_buffer_capacity,
+                                capacity=pcfg.capacity, paged=args.paged)
+        db = SpecPipeDBEngine(target, draft, pcfg, max_len=MAX_LEN,
+                              max_slots=DB_SLOTS, executor=ex)
+        # budgets no request reaches within the window: occupancy stays
+        # DB_SLOTS in every profiled timestep
+        for uid, n in enumerate(DB_PROMPT_LENS):
+            db.submit(Request(uid, rng.integers(0, tcfg.vocab_size, size=n),
+                              n_steps))
+        timesteps = db.steps()
+        step = functools.partial(next, timesteps)
     for _ in range(WARMUP):
-        eng.step(st)
+        step()
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     for _ in range(STEPS):
-        eng.step(st)
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
 
@@ -82,7 +114,7 @@ def main(argv=None) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
-            eng.step(st)
+            step()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     by_name = collections.defaultdict(lambda: [0.0, 0])
@@ -92,7 +124,10 @@ def main(argv=None) -> None:
             acc[0] += ev.time_range.elapsed_us()
             acc[1] += 1
     busy_ms = sum(v[0] for v in by_name.values()) / 1e3 / STEPS
+    occupancy = (1 if args.mode == "pipedec"
+                 else db.stats.occupancy[-1])
     _emit({"profile": "timestep", "device": torch.cuda.get_device_name(0),
+           "mode": args.mode, "paged": args.paged, "occupancy": occupancy,
            "quant": args.quant, "target_layers": TARGET_LAYERS,
            "stages": STAGES,
            "steps": STEPS, "wall_ms": wall_ms,

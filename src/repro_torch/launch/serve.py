@@ -1,13 +1,19 @@
 """Serving CLI of the port: build the smoke-size target + draft and run a
-batch of requests through the ServingEngine in pp or pipedec mode.
+batch of requests through the ServingEngine in pp, pipedec or pipedec-db
+mode.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pipedec
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pipedec-db \
+      --paged --slots 3
 
 runs the smoke-size pair on the card; ``--device cpu`` runs it on the
 CPU; ``--quant int8`` serves both bundles quantized
 (``ModelBundle.quantize()``: int8 projections through the dequant-matmul
 kernel, an int8 KV cache through the attention kernels' int8 mode).
-``-h`` lists the flags.
+``--mode pipedec-db`` serves SpecPipe-DB on the local executor with
+``--slots`` slots, over a dense arena or, with ``--paged``, a block-paged
+one (``--page-size`` rows per block), whose tree verify runs the paged
+attention kernels.  ``-h`` lists the flags.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from repro_torch.core.pipedec import PipeDecConfig
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.serving import Request, Result, ServingEngine
+from repro_torch.serving import (LocalFusedExecutor, Request, Result,
+                                 ServingEngine)
 
 
 def build_bundle(arch: str, *, seed: int,
@@ -38,7 +45,8 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     prompts and print one line per request.  Returns the engine (its
     bundles carry the call counts) and the results by uid."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--mode", choices=["pp", "pipedec"], default="pipedec")
+    ap.add_argument("--mode", choices=["pp", "pipedec", "pipedec-db"],
+                    default="pipedec")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -46,24 +54,41 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     ap.add_argument("--width", type=int, default=8)
     ap.add_argument("--branch", type=int, default=4)
     ap.add_argument("--slots", type=int, default=3,
-                    help="pp mode: rows per lockstep batch")
+                    help="pp: rows per lockstep batch; pipedec-db: KV "
+                         "slots (requests sharing a timestep)")
     ap.add_argument("--quant", choices=["none", "int8"], default="none",
                     help="int8: serve both bundles quantized "
                          "(ModelBundle.quantize(): per-out-channel int8 "
                          "weights and an int8 KV cache)")
+    ap.add_argument("--paged", action="store_true",
+                    help="pipedec-db only: a block-paged KV arena "
+                         "(pools behind per-slot block tables; each "
+                         "request backs its horizon, not max_len)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="rows per KV block under --paged (a power of two)")
     args = ap.parse_args(argv)
+    if args.paged and args.mode != "pipedec-db":
+        ap.error("--paged needs --mode pipedec-db")
 
     target = build_bundle("pipedec-target", seed=0, device=args.device)
     draft = None
-    if args.mode == "pipedec":
+    if args.mode != "pp":
         draft = build_bundle("pipedec-draft", seed=1, device=args.device)
     if args.quant == "int8":
         target = target.quantize()
         draft = draft.quantize() if draft is not None else None
     pcfg = PipeDecConfig(n_stages=args.stages, width=args.width,
                          branch=args.branch)
+    max_len = 512
+    executor = None
+    if args.mode == "pipedec-db":
+        executor = LocalFusedExecutor(
+            target, draft, slots=args.slots, max_len=max_len,
+            tree_capacity=pcfg.tree_buffer_capacity, capacity=pcfg.capacity,
+            paged=args.paged, page=args.page_size)
     engine = ServingEngine(target, draft, mode=args.mode,
-                           max_batch=args.slots, pipedec=pcfg)
+                           max_batch=args.slots, max_len=max_len,
+                           pipedec=pcfg, executor=executor)
     rng = np.random.default_rng(0)
     for uid in range(args.requests):
         prompt = rng.integers(0, target.cfg.vocab_size,

@@ -16,10 +16,18 @@ over the committed prefix plus ``tree_block_attention`` over the tree
 buffer, merged by ``combine_lse``.  The kernels read the caches in place
 through transposed views.
 
+A cache leaf may also be block-paged (``models.paging.Paged``: a row pool
+behind a per-slot block table, the SpecPipe-DB paged arena).  Then decode
+and tree verification take the paged kernels (``ops.paged_*``), which read
+the pools through the tables as strided ``[Nb, KV, page, hd]`` views, with
+no dense copy; int8 scale leaves are paged like K/V and share the table.
+
 Caches are updated in place (the JAX functions return new arrays): a
 cache is a preallocated buffer that each write fills at given rows, which
-keeps one copy of every cache on the card.  Writes are checked on the
-host to fit; nothing is clamped or dropped.
+keeps one copy of every cache on the card.  Dense writes are checked on
+the host to fit; nothing is clamped or dropped.  Paged writes follow the
+reference's drop semantics: rows past the buffer end land in the null
+block.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import quantize_rows
+from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (QuantWeight, apply_rope, dense_init_,
                                        weight)
@@ -125,21 +134,46 @@ def kv_updates(cache, k, v):
     return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
-def cache_write_rows(cache, updates, starts: Sequence[int]):
+def write_index(buf, starts: Sequence[int], b: int, n: int):
+    """Where a write of ``n`` rows per batch row at ``starts`` (one start
+    broadcasts over ``b`` rows) lands in cache leaf ``buf``: the physical
+    pool rows [b, n] of a paged leaf (``paging.len_rows``; rows past the
+    end go to the null block), None for a dense write at one start (a
+    slice), else the rows [b, n] of a dense leaf on its device, checked on
+    the host to fit.  The leaves of one cache share it."""
+    rows = list(starts) * b if len(starts) == 1 else list(starts)
+    if paging.is_paged(buf):
+        return paging.len_rows(buf, rows, n)
+    length = buf.shape[1]
+    if len(rows) != b or min(rows) < 0 or max(rows) + n > length:
+        raise IndexError(f"cache write of {n} rows at {rows} does not "
+                         f"fit {length} rows")
+    if len(set(rows)) == 1:
+        return None
+    return torch.as_tensor(rows, device=buf.device)[:, None] + \
+        torch.arange(n, device=buf.device)
+
+
+def cache_write_rows(cache, updates, starts: Sequence[int], *,
+                     index=None):
     """Per-row write: batch row b of every update lands at rows
-    [starts[b], starts[b]+n) (one start broadcasts), in place."""
+    [starts[b], starts[b]+n) (one start broadcasts), in place.  ``index``
+    is the leaves' shared ``write_index``, computed here when not given
+    (a caller writing every layer's cache at the same rows computes it
+    once)."""
+    first = next(iter(updates))
+    b, n = updates[first].shape[:2]
+    if index is None:
+        index = write_index(cache[first], starts, b, n)
     for name, u in updates.items():
         buf = cache[name]
-        b, n, length = u.shape[0], u.shape[1], buf.shape[1]
-        rows = list(starts) * b if len(starts) == 1 else list(starts)
-        if len(rows) != b or min(rows) < 0 or max(rows) + n > length:
-            raise IndexError(f"cache write of {n} rows at {rows} does not "
-                             f"fit {length} rows")
-        if len(set(rows)) == 1:
-            buf[:, rows[0]:rows[0] + n] = u
+        if paging.is_paged(buf):
+            paging.write_len_rows(buf, u, None, rows=index)
+        elif index is None:
+            s0 = int(starts[0])
+            buf[:, s0:s0 + n] = u
         else:
-            for i, s in enumerate(rows):
-                buf[i, s:s + n] = u[i]
+            buf[torch.arange(b, device=buf.device)[:, None], index] = u
     return cache
 
 
@@ -151,11 +185,20 @@ def _heads_first(t):
 
 def _scales(cache, k: str = "k_scale", v: str = "v_scale"):
     """The kernels' int8 keywords for an int8 cache (scale views in the
-    kernels' [B,KV,L] layout), nothing for an fp32 one."""
+    kernels' [B,KV,L] layout, or [Nb,KV,page] pool views for a paged
+    cache), nothing for an fp32 one."""
     if "k_scale" not in cache:
         return {}
-    return {k: _heads_first(cache["k_scale"]),
-            v: _heads_first(cache["v_scale"])}
+    return {k: _kernel_view(cache["k_scale"]),
+            v: _kernel_view(cache["v_scale"])}
+
+
+def _kernel_view(buf):
+    """A cache leaf as the kernels read it: [B,heads,L,...] for a dense
+    leaf, the [Nb,heads,page,...] pool view for a paged one (no copy)."""
+    if paging.is_paged(buf):
+        return paging.pool_view(buf.pages, buf.page)
+    return _heads_first(buf)
 
 
 # --------------------------------------------------------------------------
@@ -190,31 +233,47 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,
     ``kv_len`` [B] = cache_len + 1 rows per batch row."""
     q, k, v = project_qkv(p, cfg, x, position[:, None])
     cache_write_rows(cache, kv_updates(cache, k, v), cache_len)
-    out = ops.decode_attention(_heads_first(q), _heads_first(cache["k"]),
-                               _heads_first(cache["v"]), kv_len,
-                               window=window, **_scales(cache))
+    if paging.is_paged(cache["k"]):
+        out = ops.paged_decode_attention(
+            _heads_first(q), _kernel_view(cache["k"]),
+            _kernel_view(cache["v"]), cache["k"].table, kv_len,
+            window=window, **_scales(cache))
+    else:
+        out = ops.decode_attention(_heads_first(q), _heads_first(cache["k"]),
+                                   _heads_first(cache["v"]), kv_len,
+                                   window=window, **_scales(cache))
     return _out(p, _heads_first(out)), cache
 
 
 def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
                      model_cache, model_len, tree_cache,
                      tree_write_index: Sequence[int], tree_mask,
-                     window: int = 0):
+                     window: int = 0, tree_write_rows=None):
     """Attention for one new tree layer (paper Algorithm 1).
 
     x [B,n,d] the layer's hidden states at ``positions`` [B,n]; model_cache
     holds ``model_len`` [B] (device int32) committed rows per batch row; the
     layer's K/V land in ``tree_cache`` at ``tree_write_index[b]`` (host
-    ints); tree_mask [B,n,T] is each node's ancestor-or-self mask against
-    the whole tree buffer.  Returns (out [B,n,d], tree_cache).
+    ints, or their ``write_index`` as ``tree_write_rows``); tree_mask
+    [B,n,T] is each node's ancestor-or-self mask against the whole tree
+    buffer.  Paged caches (both, as the paged arena keeps
+    them) go through the paged kernels.  Returns (out [B,n,d],
+    tree_cache).
     """
     q, k, v = project_qkv(p, cfg, x, positions)
     cache_write_rows(tree_cache, kv_updates(tree_cache, k, v),
-                     tree_write_index)
-    out = ops.tree_attention(
-        _heads_first(q), _heads_first(model_cache["k"]),
-        _heads_first(model_cache["v"]), _heads_first(tree_cache["k"]),
-        _heads_first(tree_cache["v"]), tree_mask, model_len,
-        window=window, qpos=positions, **_scales(model_cache),
-        **_scales(tree_cache, "kt_scale", "vt_scale"))
+                     tree_write_index, index=tree_write_rows)
+    kw = dict(window=window, qpos=positions, **_scales(model_cache),
+              **_scales(tree_cache, "kt_scale", "vt_scale"))
+    if paging.is_paged(model_cache["k"]):
+        out = ops.paged_tree_attention(
+            _heads_first(q), _kernel_view(model_cache["k"]),
+            _kernel_view(model_cache["v"]), model_cache["k"].table,
+            _kernel_view(tree_cache["k"]), _kernel_view(tree_cache["v"]),
+            tree_cache["k"].table, tree_mask, model_len, **kw)
+    else:
+        out = ops.tree_attention(
+            _heads_first(q), _heads_first(model_cache["k"]),
+            _heads_first(model_cache["v"]), _heads_first(tree_cache["k"]),
+            _heads_first(tree_cache["v"]), tree_mask, model_len, **kw)
     return _out(p, _heads_first(out)), tree_cache

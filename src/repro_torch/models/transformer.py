@@ -13,12 +13,20 @@ plain functions, as in the JAX package:
   * ``commit_tree_node`` - move one verified tree node's K/V into the
                            model cache (two-level cache sync, paper 3.4.3).
 
+and, for the slot-stacked arenas of SpecPipe-DB, the batched cache-row
+helpers ``slice_cache_rows`` / ``update_cache_rows`` /
+``where_cache_rows``, ``commit_tree_nodes`` (the per-row two-level sync)
+and ``remap_tree_cache_rows`` (the per-row post-prune compaction).
+
 Caches are lists with one ``{"k", "v"}`` dict of [B, L, KV, hd] per layer
 (plus ``{"k_scale", "v_scale"}`` [B, L, KV] for an int8 model, whose K/V
-are int8), updated in place (see ``attention``).  Row offsets (cache lengths, tree
-write offsets) are host ints, so every write is checked to fit before it
-is made; bounds that the kernels read are built once per step on the
-model's device.
+are int8), updated in place (see ``attention``).  A leaf may instead be
+block-paged (``models.paging.Paged``); every function here takes dense
+and paged leaves alike, and the paged ones reach the layers as they are
+(the port has no layer scan, so nothing densifies them).  Row offsets
+(cache lengths, tree write offsets) are host ints, so every dense write is
+checked to fit before it is made; bounds that the kernels read are built
+once per step on the model's device.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, RMSNorm, embed, embed_init_,
                                        mlp, param, unembed)
@@ -245,6 +254,8 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
     model_len = torch.as_tensor(host_rows(cache_len, b), device=dev,
                                 dtype=torch.int32)
     write_at = host_rows(tree_write_index, b)
+    # every layer's tree cache takes the layer at the same rows
+    write_rows = attn.write_index(tree_caches[0]["k"], write_at, b, n)
     x = embed(model.embed.table, node_tokens)
 
     def attend(i, mixer, h):
@@ -252,7 +263,7 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
             mixer, cfg, h, positions, model_cache=cache[i],
             model_len=model_len, tree_cache=tree_caches[i],
             tree_write_index=write_at, tree_mask=mask,
-            window=cfg.sliding_window)
+            window=cfg.sliding_window, tree_write_rows=write_rows)
         return y
 
     x = _run_layers(model, x, attend)
@@ -272,3 +283,147 @@ def commit_tree_node(cache, tree_caches, node_idx: int, model_len: int):
                                  f"{buf.shape[1]} rows")
             buf[:, model_len] = layer_tree[name][:, node_idx]
     return cache
+
+
+# --------------------------------------------------------------------------
+# slot-stacked cache rows (the SpecPipe-DB KV arena)
+# --------------------------------------------------------------------------
+def _leaf_map(fn, *caches):
+    """``fn(leaf, *others)`` over the leaves of per-layer cache lists."""
+    return [{name: fn(buf, *(c[i][name] for c in caches[1:]))
+             for name, buf in layer.items()}
+            for i, layer in enumerate(caches[0])]
+
+
+def slice_cache_rows(cache, start: int, size: int):
+    """Slot rows [start, start + size) of every leaf, as views: dense
+    slices, and table slices over the shared pool for paged leaves.
+    Writes through the views land in the arena."""
+    return _leaf_map(lambda buf: paging.slice_slots(buf, start, size)
+                     if paging.is_paged(buf) else buf[start:start + size],
+                     cache)
+
+
+def update_cache_rows(cache, rows, start: int = 0):
+    """Write a row slice (dense rows, or ``slice_cache_rows`` views) back
+    into the full slot-stacked cache at slot ``start``, in place.  Views
+    of the arena are in it already and are left as they are."""
+    def put(buf, upd):
+        if paging.is_paged(buf):
+            if paging.is_paged(upd):
+                return paging.adopt_pool(buf, upd)
+            return paging.write_slot_rows(buf, upd, start)
+        dst = buf[start:start + upd.shape[0]]
+        if dst.data_ptr() != upd.data_ptr():
+            dst.copy_(upd)
+        return buf
+    _leaf_map(put, cache, rows)
+    return cache
+
+
+def where_cache_rows(on, new, old):
+    """Per-slot select: slot b of every leaf takes ``new`` where ``on[b]``
+    and keeps ``old`` elsewhere (a new cache; paged leaves select per
+    block through the shared table)."""
+    def pick(o, n):
+        if paging.is_paged(o):
+            return paging.where_slots(on, n, o)
+        sel = torch.as_tensor(on, device=o.device).reshape(
+            -1, *([1] * (o.dim() - 1)))
+        return torch.where(sel, n.to(o.dtype), o)
+    return _leaf_map(pick, old, new)
+
+
+def _rows_memo():
+    """Physical-row index by table: the leaves of one arena share their
+    tables, so a batched helper computes each index once per call."""
+    memo = {}
+
+    def get(p: paging.Paged, key, make):
+        k = (p.table.data_ptr(), tuple(p.table.shape), key)
+        if k not in memo:
+            memo[k] = make()
+        return memo[k]
+    return get
+
+
+@torch.no_grad()
+def commit_tree_nodes(cache, tree_caches, node_idx, model_len,
+                      commit_mask=None):
+    """Batched two-level cache sync (SpecPipe-DB exit phase), in place:
+    slot b moves tree row ``node_idx[b]`` into its model cache at row
+    ``model_len[b]``, wherever ``commit_mask[b]`` (all slots when None);
+    the other slots stay bit-unchanged.  Paged model leaves take the row
+    through their table (``take_len_rows`` then ``write_len_rows``, drop
+    semantics); dense ones are checked on the host to fit."""
+    node = np.asarray(node_idx, np.int64).reshape(-1)
+    mlen = np.asarray(model_len, np.int64).reshape(-1)
+    on = (np.ones(node.shape, bool) if commit_mask is None
+          else np.asarray(commit_mask, bool).reshape(-1))
+    rows = np.nonzero(on)[0]
+    memo = _rows_memo()
+    dev = {}
+    for layer_cache, layer_tree in zip(cache, tree_caches):
+        for name, mbuf in layer_cache.items():
+            tbuf = layer_tree[name]
+            d = (mbuf.pages if paging.is_paged(mbuf) else mbuf).device
+            if d not in dev:   # every index on the device once per call
+                dev[d] = [torch.as_tensor(a, device=d) for a in (
+                    node, mlen, on, rows, node[rows], mlen[rows])]
+            node_d, mlen_d, on_d, rows_d, node_r, mlen_r = dev[d]
+            if paging.is_paged(mbuf):
+                src = (tbuf.pages[memo(tbuf, "src", lambda: paging.len_rows(
+                    tbuf, node_d, 1))] if paging.is_paged(tbuf)
+                    else tbuf[torch.arange(node.size, device=d), node_d,
+                              None])
+                dst = memo(mbuf, "dst", lambda: paging.len_rows(
+                    mbuf, mlen_d, 1, on_d))
+                paging.write_len_rows(mbuf, src, None, rows=dst)
+                continue
+            if rows.size and mlen[rows].max() >= mbuf.shape[1]:
+                raise IndexError(f"commit at rows {mlen[rows].tolist()} "
+                                 f"does not fit {mbuf.shape[1]} rows")
+            if paging.is_paged(tbuf):
+                tbuf = paging.to_dense(tbuf)
+            mbuf[rows_d, mlen_r] = tbuf[rows_d, node_r]
+    return cache
+
+
+def _inverse_perms(index_maps: np.ndarray, length: int) -> np.ndarray:
+    """Per slot, the gather order g[new] = old of a prune map (dropped
+    rows, -1, pushed past the live prefix; the slack rows past the map's
+    width count as dropped)."""
+    im = np.full((index_maps.shape[0], length), -1, np.int64)
+    im[:, :index_maps.shape[1]] = index_maps
+    key = np.where(im >= 0, im, length + np.arange(length)[None])
+    return np.argsort(key, axis=1, kind="stable")
+
+
+@torch.no_grad()
+def remap_tree_cache_rows(tree_caches, index_maps):
+    """Batched post-prune tree-cache compaction (SpecPipe-DB exit phase),
+    in place: ``index_maps`` [B, cap] holds one old -> new prune map per
+    slot (identity rows leave a slot bit-unchanged, so pruned and
+    untouched slots share one gather).  Per slot the permutation is
+    ``speculative.remap_tree_caches``'s.  Paged leaves gather their
+    permuted rows through the table and scatter them back through it."""
+    maps = np.asarray(index_maps, np.int64)
+    memo = _rows_memo()
+    perms = {}
+    for layer in tree_caches:
+        for name, buf in layer.items():
+            length = buf.length if paging.is_paged(buf) else buf.shape[1]
+            d = (buf.pages if paging.is_paged(buf) else buf).device
+            if (length, d) not in perms:
+                perms[length, d] = torch.as_tensor(
+                    _inverse_perms(maps, length), device=d)
+            g = perms[length, d]
+            if paging.is_paged(buf):
+                src = memo(buf, "src", lambda: torch.gather(
+                    paging.row_ids(buf), 1, g))
+                dst = memo(buf, "dst", lambda: paging.row_ids(buf))
+                buf.pages[dst.reshape(-1)] = buf.pages[src.reshape(-1)]
+                continue
+            idx = g.reshape(*g.shape, *([1] * (buf.dim() - 2)))
+            buf.copy_(torch.gather(buf, 1, idx.expand_as(buf)))
+    return tree_caches

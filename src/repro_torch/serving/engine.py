@@ -1,16 +1,23 @@
-"""Serving front door: a request queue and two greedy execution modes.
+"""Serving front door: a request queue and three execution modes.
 
-  * ``mode="pp"``      - batched autoregressive decode, the paper's PP
-                         baseline: requests are bucketed by prompt length and
-                         decoded in lockstep batches of up to ``max_batch``
-                         rows, each batch running to its longest
-                         ``max_new_tokens``.
-  * ``mode="pipedec"`` - latency-oriented: the pipeline works on one
-                         request at a time with the dynamic prediction tree
-                         (the paper's single-request system).
-
-``mode="pipedec-db"`` (SpecPipe-DB continuous batching) is not ported yet:
-asking for it raises ``NotImplementedError``.
+  * ``mode="pp"``         - batched greedy autoregressive decode, the
+                            paper's PP baseline: requests are bucketed by
+                            prompt length and decoded in lockstep batches
+                            of up to ``max_batch`` rows, each batch running
+                            to its longest ``max_new_tokens``.
+  * ``mode="pipedec"``    - latency-oriented: the pipeline works on one
+                            request at a time with the dynamic prediction
+                            tree (the paper's single-request system).
+  * ``mode="pipedec-db"`` - SpecPipe-DB dynamic batching
+                            (``serving.dynbatch.SpecPipeDBEngine``): up to
+                            ``max_batch`` requests' trees share every
+                            pipeline timestep, and finished requests are
+                            replaced from the queue without draining the
+                            pipeline.  ``executor`` picks the compute
+                            backend (default: the dense local arena;
+                            ``LocalFusedExecutor(paged=True)`` the paged
+                            one); the run's ``DBStats`` stay in
+                            ``db_stats``.
 """
 from __future__ import annotations
 
@@ -23,23 +30,30 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
-from repro_torch.core.speculative import ModelBundle
+from repro_torch.core.speculative import ModelBundle, SamplingParams
 
-MODES = ("pp", "pipedec")
+MODES = ("pp", "pipedec", "pipedec-db")
 
 
 @dataclasses.dataclass
 class Request:
-    """One generation request: prompt and token budget."""
+    """One generation request: prompt and token budget, plus the DB
+    mode's admission knobs and a per-request sampling override."""
     uid: int
     prompt: np.ndarray
     max_new_tokens: int = 32
+    arrival_t: int = 0        # arrival time in pipeline timesteps (DB mode)
+    priority: int = 0         # admission priority (higher = sooner; ties
+                              # and all-default traffic are exact FIFO)
+    deadline_t: Optional[int] = None   # boosts admission as it nears
+    sampling: Optional[SamplingParams] = None  # overrides the engine's
 
 
 @dataclasses.dataclass
 class Result:
     """Per-request outcome: tokens, wall-clock latency and the engine's
-    per-request stats (``GenStats`` in pipedec mode, None in pp mode)."""
+    per-request stats (``GenStats`` in the pipedec modes, None in pp
+    mode)."""
     uid: int
     tokens: np.ndarray
     latency_s: float
@@ -57,18 +71,18 @@ class ServingEngine:
     def __init__(self, target: ModelBundle,
                  draft: Optional[ModelBundle] = None, *, mode: str = "pp",
                  max_batch: int = 8, max_len: int = 512,
-                 pipedec: Optional[PipeDecConfig] = None):
-        if mode == "pipedec-db":
-            raise NotImplementedError(
-                "mode='pipedec-db' (SpecPipe-DB) is not ported yet: "
-                "ROADMAP.md queue 1, item 7 (SpecPipe-DB, local)")
+                 pipedec: Optional[PipeDecConfig] = None, executor=None):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if mode == "pipedec" and draft is None:
-            raise ValueError("pipedec mode needs a draft model")
+        if mode != "pp" and draft is None:
+            raise ValueError(f"{mode} mode needs a draft model")
+        if executor is not None and mode != "pipedec-db":
+            raise ValueError("executor backends apply to mode='pipedec-db'")
         self.target, self.draft, self.mode = target, draft, mode
         self.max_batch, self.max_len = max_batch, max_len
         self.pipedec_cfg = pipedec or PipeDecConfig()
+        self.executor = executor
+        self.db_stats = None      # DBStats after a mode="pipedec-db" run
         self.queue: List[Request] = []
 
     def submit(self, req: Request) -> None:
@@ -101,17 +115,32 @@ class ServingEngine:
         t0 = time.perf_counter()
         eng = PipeDecEngine(self.target, self.draft, self.pipedec_cfg,
                             max_len=self.max_len)
-        out, stats = eng.generate(req.prompt, req.max_new_tokens)
+        out, stats = eng.generate(req.prompt, req.max_new_tokens,
+                                  sampling=req.sampling)
         _sync(self.target.device)
         return Result(req.uid, out, time.perf_counter() - t0, stats)
 
-    def run(self) -> Dict[int, Result]:
-        """Serve every queued request; returns results by uid."""
+    def run(self, on_token=None) -> Dict[int, Result]:
+        """Serve every queued request; returns results by uid.
+        ``on_token(uid, token, timestep)`` streams committed tokens in
+        mode="pipedec-db" (the batch modes ignore it)."""
         results: Dict[int, Result] = {}
         queue, self.queue = self.queue, []
         if self.mode == "pipedec":
             for req in queue:
                 results[req.uid] = self._run_pipedec_one(req)
+            return results
+        if self.mode == "pipedec-db":
+            from repro_torch.serving.dynbatch import SpecPipeDBEngine
+            eng = SpecPipeDBEngine(self.target, self.draft, self.pipedec_cfg,
+                                   max_len=self.max_len,
+                                   max_slots=self.max_batch,
+                                   executor=self.executor)
+            for req in queue:
+                eng.submit(req)
+            results = eng.run(on_token=on_token)
+            _sync(self.target.device)
+            self.db_stats = eng.stats
             return results
         buckets = collections.defaultdict(list)
         for r in queue:

@@ -1,6 +1,6 @@
-"""The port's serving front door and CLI on the CPU: ``pp`` and
-``pipedec`` modes against plain autoregressive decoding and against the
-JAX package's ``ServingEngine`` on the same weights."""
+"""The port's serving front door and CLI on the CPU: ``pp``, ``pipedec``
+and ``pipedec-db`` modes against plain autoregressive decoding and
+against the JAX package's ``ServingEngine`` on the same weights."""
 import dataclasses
 
 import jax
@@ -19,7 +19,7 @@ from repro_torch.core.baselines import generate_autoregressive
 from repro_torch.core.pipedec import PipeDecConfig
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.launch import serve
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import LocalFusedExecutor, Request, ServingEngine
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -84,10 +84,23 @@ def test_pp_matches_jax_serving_engine():
 
 
 def test_pipedec_db_is_not_ported(pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(*pair, mode="pipedec-db")
-    with pytest.raises(ValueError):
-        ServingEngine(pair[0], None, mode="pipedec")
+    """What of SpecPipe-DB is not ported is refused: an overlapped
+    executor (the reference's pipeline-parallel schedules) names its
+    ROADMAP item; the speculative modes need a draft."""
+    class Overlapped(LocalFusedExecutor):
+        overlapped = True
+    pcfg = PipeDecConfig(n_stages=2, width=2, branch=2)
+    ex = Overlapped(*pair, slots=2, max_len=64,
+                    tree_capacity=pcfg.tree_buffer_capacity,
+                    capacity=pcfg.capacity)
+    eng = ServingEngine(*pair, mode="pipedec-db", max_batch=2, pipedec=pcfg,
+                        executor=ex)
+    eng.submit(Request(0, np.array([1, 2, 3]), 2))
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        eng.run()
+    for mode in ("pipedec", "pipedec-db"):
+        with pytest.raises(ValueError):
+            ServingEngine(pair[0], None, mode=mode)
 
 
 @pytest.mark.parametrize("mode", ["pp", "pipedec"])
@@ -100,3 +113,26 @@ def test_cli_on_cpu(mode, capsys):
     assert engine.mode == mode and (engine.draft is None) == (mode == "pp")
     assert all(len(r.tokens) == 6 for r in results.values())
     assert ("acc=" in lines[0]) == (mode == "pipedec")
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_cli_pipedec_db_paged_on_cpu(quant, capsys):
+    """``--mode pipedec-db --paged`` serves the smoke pair on the paged
+    arena; each request's tokens equal the single-request PipeDec engine
+    on the same (fp32 or int8) bundles."""
+    argv = ["--mode", "pipedec-db", "--paged", "--device", "cpu",
+            "--requests", "3", "--new-tokens", "5", "--stages", "2",
+            "--slots", "2", "--quant", quant]
+    engine, results = serve.main(argv)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(results) == 3 and len(lines) == 3 and "acc=" in lines[0]
+    assert engine.executor.paged and engine.db_stats.peak_occupancy == 2
+    assert engine.target.cfg.quant == ("int8" if quant == "int8" else "")
+    from repro_torch.core.pipedec import PipeDecEngine
+    single = PipeDecEngine(engine.target, engine.draft, engine.pipedec_cfg,
+                           max_len=engine.max_len)
+    rng = np.random.default_rng(0)
+    for uid in range(3):
+        prompt = rng.integers(0, engine.target.cfg.vocab_size, size=8)
+        want, _ = single.generate(prompt, 5)
+        np.testing.assert_array_equal(results[uid].tokens, want)
