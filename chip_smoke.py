@@ -12,8 +12,12 @@ Phases, each printed as JSON objects, one per line:
                  PyTorch version on the card at the main path's shapes: max
                  errors against the stated tolerances, kernel / plain /
                  library times (CUDA events) and the least time the card
-                 could take; and the dequant-matmul's M-independence (a row
-                 gives the same bits at M = 1 as inside M = 8 or 128);
+                 could take; the dequant-matmul's M-independence (every row
+                 of each case, and rows of an M = 128 call, give the same
+                 bits as M = 1 calls); the paged flash kernel's batch
+                 independence (each row of a bucket-3 case gives the same
+                 bits as a B = 1 call); and one CUDA launch per wrapper call
+                 of the dequant-matmul and flash kernels (torch.profiler);
   3. serve     - the main path: ServingEngine(mode="pipedec") over the
                  paper's pair at published widths (target cut to 8 layers,
                  one per pipeline stage; seeded random weights), greedy
@@ -71,10 +75,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks: HBM bandwidth and fp32 rate outside the tensor
-# cores (the kernels use CUDA-core FMA only).
+# Published H100 SXM peaks: HBM bandwidth, the fp32 rate outside the tensor
+# cores (the tree kernel's CUDA-core FMAs), and the tensor cores' dense TF32
+# (the flash kernel's 3xTF32 products) and bf16 rates (the dequant-matmul's
+# bf16 passes).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
+# products per fp32 product: the flash kernel's 3xTF32, the dequant-matmul's
+# bf16 terms of x (kernels/quant.py PASSES)
+TF32_PASSES = 3
 
 # kernel vs plain tolerances: fp32 sums taken in another order.  The int8
 # modes dequantize each row exactly as the plain versions do (float(q) *
@@ -165,25 +176,30 @@ def cuda_ms(fn, batches: int = 21, per_batch: int = 10):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False):
+def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False,
+           tensor_cores=False):
     """Least time (ms) for attention over ``valid`` [B,n,L] (query may
     attend key): every input byte read once (q, the K/V rows some query of
     the batch row attends, at 1 byte an element plus 4 bytes of scale per
     row and KV head when ``int8``, ``extra_bytes`` of masks and bounds),
     every output byte written once (o, m, l); operations 4*hd per (head,
     query, key) pair that is attended (QK and PV), at the fp32 CUDA-core
-    peak."""
+    peak, or, for a kernel that runs them on the tensor cores
+    (``tensor_cores``: the flash kernel), three TF32 products each at the
+    TF32 peak."""
     rows = int(valid.any(1).sum())                 # attended keys over B
     kv_row = 2 * (hd + 4) if int8 else 2 * 4 * hd
     nbytes = 4 * (2 * b * h * n * hd + 2 * b * h * n) + rows * kvh * kv_row
     nbytes += extra_bytes
     flops = 4 * hd * (h * int(valid.sum()))
+    if tensor_cores:
+        return _roofline(nbytes, TF32_PASSES * flops, TF32_FLOP_PER_S)
     return _roofline(nbytes, flops)
 
 
-def _roofline(nbytes, flops):
+def _roofline(nbytes, flops, peak=FP32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -378,7 +394,8 @@ def phase_kernels(state):
         def library(q=q, k=lib_k, v=lib_v, lib_mask=lib_mask):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
                                                   enable_gqa=rep > 1)
-        bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8)
+        bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8,
+                                    row_name.startswith("flash"))
         (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_eager = cuda_ms(library)
         row = {"phase": "kernels", "case": name, "kernel": row_name,
@@ -401,14 +418,25 @@ def phase_kernels(state):
             library_ms=lib_ms))
     bad += dequant_cases(torch, dev, summary)
     bad += paged_cases(torch, dev, summary)
+    bad += one_launch_cases(torch, dev)
     state["kernel_summary"] = summary
     if bad:
         raise AssertionError(f"kernels disagree with plain: {bad}")
 
 
+def _rows_equal_m1(torch, quant, x, q8, scale, got, rows):
+    """Each row of ``rows`` of the M-row result ``got`` bit-equal to an
+    M = 1 call on that row alone."""
+    return all(torch.equal(quant.dequant_matmul(x[i:i + 1], q8, scale)[0],
+                           got[i]) for i in rows)
+
+
 def dequant_cases(torch, dev, summary):
     """dequant_matmul at the main path's shapes: kernel against plain,
-    times, bound, and the M-independence check.  Returns failed cases."""
+    times, bound, and the M-independence checks: every row of the case
+    against an M = 1 call, and the same weights at M = 128 (a prefill),
+    whose rows (a spread of them, and the first 8 as one M = 8 call) must
+    equal M = 1 and M = 8 calls bit for bit.  Returns failed cases."""
     from repro_torch.kernels import quant
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -431,22 +459,37 @@ def dequant_cases(torch, dev, summary):
         got = run()
         torch.cuda.synchronize()
         err = float((got - plain()).abs().max())
-        # a row's bits must not depend on M: row 0 alone, and (M > 1) the
-        # last row alone, against the same rows of the M-row call
-        same_rows = all(torch.equal(quant.dequant_matmul(x[i:i + 1], q8,
-                                                         scale)[0], got[i])
-                        for i in sorted({0, m - 1}))
-        ok = err <= TOL_DQ_ABS and same_rows
-        bound_ms, bound_by = _roofline(k * n + 4 * n + 4 * m * k + 4 * m * n,
-                                       2 * m * k * n)
+        # a row's bits must not depend on M: every row alone against the
+        # same row of the M-row call, and at M = 128
+        same_rows = _rows_equal_m1(torch, quant, x, q8, scale, got,
+                                   range(m))
+        x128 = torch.randn(128, k, generator=gen, device=dev)
+        got128 = quant.dequant_matmul(x128, q8, scale)
+        err128 = float((got128 - quant.dequant_matmul_plain(
+            x128, q8, scale)).abs().max())
+        same128 = (_rows_equal_m1(torch, quant, x128, q8, scale, got128,
+                                  (0, 1, 7, 8, 63, 64, 100, 127))
+                   and torch.equal(quant.dequant_matmul(x128[:8], q8, scale),
+                                   got128[:8]))
+        del x128, got128
+        ok = (err <= TOL_DQ_ABS and err128 <= TOL_DQ_ABS and same_rows
+              and same128)
+        # the kernel's products: PASSES bf16 terms of x against the exact
+        # bf16 weights, at the tensor cores' bf16 peak
+        bound_ms, bound_by = _roofline(
+            k * n + 4 * n + 4 * m * k + 4 * m * n,
+            quant.PASSES * 2 * m * k * n, BF16_FLOP_PER_S)
         (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_eager = cuda_ms(library)
         splits, chunk = quant.k_split(k, n)
         emit({"phase": "kernels", "case": name, "kernel": "dequant_matmul",
               "shapes": {"x": [m, k], "w_q": [k, n]},
               "k_splits": splits, "k_per_split": chunk,
-              "max_abs_err": err, "tol": {"abs": TOL_DQ_ABS},
-              "m1_bit_equal": same_rows, "ok": ok, "kernel_ms": k_ms,
+              "passes": quant.PASSES,
+              "max_abs_err": err, "max_abs_err_m128": err128,
+              "tol": {"abs": TOL_DQ_ABS},
+              "m1_bit_equal": same_rows, "m128_rows_bit_equal": same128,
+              "ok": ok, "kernel_ms": k_ms,
               "plain_ms": p_ms, "library_ms": lib_ms,
               "library": "torch.mm on the dequantized fp32 weight (what "
                          "the fp32 path pays through cuBLAS)",
@@ -582,8 +625,20 @@ def paged_cases(torch, dev, summary):
             ref = dense_run()
             bit_equal = all(torch.equal(g, r) for g, r in zip(got, ref))
             err_dense = float((got[0] - ref[0]).abs().max())
+            # flash: each batch row bit-equal to a B = 1 call on it alone
+            # (a row's chunk plan and sums depend on its own keys only)
+            rows_alone = None
+            if kv_len:
+                rows_alone = all(
+                    all(torch.equal(g[r], a[0]) for g, a in zip(
+                        got, paged.paged_flash_attention_lse(
+                            q[r:r + 1], pools["k"], pools["v"],
+                            table[r:r + 1], kvl[r:r + 1], qpos[r:r + 1],
+                            **sc)))
+                    for r in range(b))
             ok = (err_o <= TOL_O_ABS and err_m <= TOL_M_REL
-                  and err_l <= TOL_L_REL and bit_equal)
+                  and err_l <= TOL_L_REL and bit_equal
+                  and rows_alone is not False)
             # the library yardstick: SDPA on the gathered (int8:
             # dequantized) fp32 view, made outside the timing; no PyTorch
             # call takes a block table
@@ -593,7 +648,8 @@ def paged_cases(torch, dev, summary):
             def library(q=q, k=lib_k, v=lib_v, mask=valid[:, None]):
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=h // kvh > 1)
-            bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8)
+            bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8,
+                                        bool(kv_len))
             (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
             (d_ms, d_eager), (lib_ms, lib_eager) = (cuda_ms(dense_run),
                                                      cuda_ms(library))
@@ -609,6 +665,7 @@ def paged_cases(torch, dev, summary):
                                               "m_rel": TOL_M_REL,
                                               "l_rel": TOL_L_REL},
                   "dense_bit_equal": bit_equal,
+                  "rows_bit_equal_b1": rows_alone,
                   "max_abs_err_vs_dense": err_dense, "ok": ok,
                   "kernel_ms": k_ms, "dense_ms": d_ms, "plain_ms": p_ms,
                   "library_ms": lib_ms,
@@ -622,6 +679,76 @@ def paged_cases(torch, dev, summary):
             _summarise(summary, row, err_o, main, name, dict(
                 ms=k_ms, dense_ms=d_ms, plain_ms=p_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms))
+    return bad
+
+
+def _cuda_launches(torch, fn):
+    """CUDA kernel launches (``cudaLaunchKernel`` calls) that one call of
+    ``fn`` makes, counted by torch.profiler; ``fn`` runs once before, so
+    first-use builds and scratch allocations stay outside the window."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+
+
+def one_launch_cases(torch, dev):
+    """Each wrapper call of the redesigned kernels is one CUDA launch:
+    dequant_matmul with and without a K split and at M = 128, the flash
+    kernel dense and paged, fp32 and int8, over several chunks.  The
+    launch counters count calls, one each.  Returns failed cases."""
+    from repro_torch.kernels import flash, paged, quant
+    from repro_torch.kernels.quant import quantize_rows
+    from repro_torch.models import paging
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for m, k, n in ((8, 8192, 1024), (128, 2048, 2048), (1, 96, 200)):
+        x = torch.randn(m, k, generator=gen, device=dev)
+        q8, sc = quant.quantize_weight(
+            torch.randn(k, n, generator=gen, device=dev), 1)
+        cases.append((f"dequant_matmul M={m} K={k} N={n} splits="
+                      f"{quant.k_split(k, n)[0]}",
+                      lambda x=x, q8=q8, sc=sc: quant.dequant_matmul(
+                          x, q8, sc)))
+    q = torch.randn(1, 64, 8, 128, generator=gen, device=dev)
+    kvl = torch.tensor([200], dtype=torch.int32, device=dev)
+    qpos = (199 + torch.arange(8, device=dev) // 2)[None].to(torch.int32)
+    table = (1 + torch.arange(32, device=dev, dtype=torch.int32))[None]
+    for int8 in (False, True):
+        kv, sc = [], {}
+        for name in ("k", "v"):
+            x = torch.randn(1, 512, 8, 128, generator=gen, device=dev)
+            if int8:
+                x, sc[name + "_scale"] = quantize_rows(x)
+            kv.append(x)
+        mode = " int8" if int8 else ""
+        cases.append(("flash_attention_lse" + mode,
+                      lambda kv=kv, sc=sc: flash.flash_attention_lse(
+                          q, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
+                          kvl, qpos, **{k: v.transpose(1, 2)
+                                        for k, v in sc.items()})))
+        pools = [paging.pool_view(torch.cat([torch.zeros_like(x[0, :PAGE]),
+                                             x[0]]), PAGE)
+                 for x in kv]
+        psc = {k: paging.pool_view(torch.cat([torch.zeros_like(
+            v[0, :PAGE]), v[0]]), PAGE) for k, v in sc.items()}
+        cases.append(("paged_flash_attention_lse" + mode,
+                      lambda pools=pools, psc=psc:
+                      paged.paged_flash_attention_lse(
+                          q, pools[0], pools[1], table, kvl, qpos, **psc)))
+    bad, counts = [], {}
+    for name, fn in cases:
+        counts[name] = _cuda_launches(torch, fn)
+        if counts[name] != 1:
+            bad.append(f"{name}: {counts[name]} launches")
+    emit({"phase": "kernels", "check": "one CUDA launch per wrapper call "
+          "(torch.profiler, cudaLaunchKernel)", "launches": counts,
+          "ok": not bad})
     return bad
 
 

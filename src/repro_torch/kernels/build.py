@@ -106,6 +106,29 @@ def launcher(name: str, argtypes: Sequence,
     return fn
 
 
+# Each kernel's device scratch (partial sums and per-tile counters) by
+# (kernel, device).  It only grows, is never freed, and the counters are
+# zero between calls (the kernels reset them), so a CUDA graph that
+# captured a launch keeps valid buffers as long as no later call of the
+# same kernel needs more.
+_SCRATCH: Dict[tuple, tuple] = {}
+
+
+def scratch(name: str, device, floats: int, ints: int):
+    """(work fp32, counters int32) on ``device`` for kernel ``name``, with
+    at least ``floats`` and ``ints`` elements; counters start at zero."""
+    import torch
+    key = (name, device.index if device.index is not None
+           else torch.cuda.current_device())
+    work, count = _SCRATCH.get(key, (None, None))
+    if work is None or work.numel() < floats:
+        work = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if count is None or count.numel() < ints:
+        count = torch.zeros(max(ints, 1), dtype=torch.int32, device=device)
+    _SCRATCH[key] = (work, count)
+    return work, count
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error."""
     if err != 0:

@@ -21,8 +21,16 @@ the whole tensors and runs the fp32 plain path.  Scales are passed as
 views of the ``[B,L,KV]`` scale caches, like K/V.
 
 What bounds the kernel on an H100: bytes, and at the main path's sizes
-(B = 1, a few hundred keys) launch latency.  See
-``csrc/flash_attention_lse.cu`` for the design.
+(B = 1, a few hundred keys) launch latency and one CTA's serial chain.
+The kernel (``csrc/flash_attention_lse.cu``) runs QK^T and PV on the
+tensor cores in 3xTF32, and splits the key range into chunks of
+``chunk_keys(hd)`` logical positions, one CTA each (flash-decoding); the
+last CTA of a query tile merges the chunks' (acc, m, l) in chunk order
+(``merge_chunks`` is the same arithmetic in plain PyTorch).  The plan
+(``chunk_plan``) depends on head_dim and on the batch row's own bounds
+only, so a row's bits do not depend on B or on other rows, and the paged
+mode follows the same plan.  One launch per call; the wrapper keeps the
+partials buffer and the per-tile counters on the card.
 
 Dispatch: a CPU tensor goes to ``flash_attention_lse_plain``; a CUDA
 tensor goes to the kernel, or the wrapper raises.  ``launches`` and
@@ -43,13 +51,84 @@ NEG_INF = -1e30
 MIN_L = 1e-30
 # (query, head) rows per CTA: the kernel takes max(1, ROWS // rep) queries
 # of all rep heads of a KV head per CTA
-ROWS = 16
+ROWS = 64
+# keys per shared-memory tile of the kernel
+TILE = 32
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
 _ARGTYPES = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64,
-             _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P,
+             _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P,
              _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _F32, _P]
+
+
+def chunk_keys(hd: int) -> int:
+    """Logical key positions per chunk of the kernel's plan: a function of
+    head_dim alone (``chunk_keys`` in ``csrc/flash_attention_lse.cu``)."""
+    return 64 if hd > 64 else 128
+
+
+def queries_per_cta(rep: int) -> int:
+    """Queries of all ``rep`` heads of a KV head in one CTA's rows."""
+    return max(1, ROWS // rep)
+
+
+def chunk_plan(hd, length, kv_len, qpos, n, rep, *, causal=False,
+               window=0):
+    """The kernel's plan, per (batch row, query tile): the chunks
+    ``range(c_lo, c_hi)`` whose CTAs compute; the other CTAs of the grid
+    exit at once.  ``kv_len`` [B] and ``qpos`` [B, n] (or None) as the
+    kernel takes them.  A tile's chunks depend on ``hd``, ``length`` and
+    its own batch row's bounds alone.  Returns ``[[(c_lo, c_hi), ...
+    per tile] per row]``."""
+    c = chunk_keys(hd)
+    bq = queries_per_cta(rep)
+    plan = []
+    for b in range(len(kv_len)):
+        tiles = []
+        for q0 in range(0, n, bq):
+            end = min(length, int(kv_len[b]))
+            start = 0
+            if qpos is not None and (causal or window > 0):
+                qs = [int(x) for x in qpos[b][q0:q0 + bq]]
+                if causal:
+                    end = min(end, max(qs) + 1)
+                if window > 0:
+                    start = max(0, min(qs) - window + 1)
+            c_lo = start // c if start < end else 0
+            tiles.append((c_lo, max(c_lo + 1, -(-end // c))))
+        plan.append(tiles)
+    return plan
+
+
+def merge_chunks(parts):
+    """Merge chunk partials ``[(acc, m, l), ...]`` in chunk order as the
+    kernel's last CTA does: ``acc`` unnormalised [..., hd], ``m``/``l``
+    [...].  Returns (o, m, l) with o = sum_c acc_c exp(m_c - M) /
+    max(l, 1e-30) and l = sum_c l_c exp(m_c - M)."""
+    mx = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for a, m, lc in parts:
+        w = torch.exp(m - mx)
+        l = l + lc * w
+        acc = acc + a * w[..., None]
+    return acc / l.clamp_min(MIN_L)[..., None], mx, l
+
+
+def scratch_for(device, b, kvh, n, rep, length, hd):
+    """The kernel's scratch for one call: partials for every chunk of
+    every (batch row, KV head, query tile), and one counter each."""
+    bq = queries_per_cta(rep)
+    groups = b * kvh * -(-n // bq)
+    chunks = max(1, -(-length // chunk_keys(hd)))
+    if chunks == 1:
+        return None, None
+    work, count = build.scratch("flash_attention_lse", device,
+                                groups * chunks * ROWS * (hd + 2), groups)
+    return work.data_ptr(), count.data_ptr()
 
 
 def rows_i32(x, b: int, device) -> torch.Tensor:
@@ -186,7 +265,8 @@ def _launch(q, k, v, kv_len, qpos, *, scale, window, causal, k_scale,
              kv_len.data_ptr(),
              None if qpos is None else qpos.data_ptr(),
              o.data_ptr(), m.data_ptr(), l.data_ptr(),
-             b, h, kvh, n, length, hd, max(1, ROWS // rep), int(causal),
+             *scratch_for(q.device, b, kvh, n, rep, length, hd),
+             b, h, kvh, n, length, hd, queries_per_cta(rep), int(causal),
              int(window), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention_lse", err)

@@ -41,9 +41,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash import (ROWS, check_kv,
-                                       flash_attention_lse_plain, qpos_rows,
-                                       rows_i32, scale_args)
+from repro_torch.kernels import flash, tree_block
+from repro_torch.kernels.flash import (check_kv, flash_attention_lse_plain,
+                                       qpos_rows, rows_i32, scale_args)
 from repro_torch.kernels.tree_block import tree_block_attention_plain
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -51,8 +51,8 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 # q + strides, k, v + pool strides, scales + strides, table, mb, page
 _HEAD = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64,
          _P, _P, _I64, _I64, _I64, _P, _I32, _I32]
-_FLASH_ARGTYPES = _HEAD + [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                           _I32, _I32, _I32, _F32, _P]
+_FLASH_ARGTYPES = _HEAD + [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
+                           _I32, _I32, _I32, _I32, _I32, _F32, _P]
 _TREE_ARGTYPES = _HEAD + [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
                           _I32, _F32, _P]
 
@@ -104,15 +104,16 @@ def paged_tree_block_attention_plain(q, k_pool, v_pool, table, tree_mask, *,
                                       k_scale=ks, v_scale=vs)
 
 
-def _check(name, q, k_pool, v_pool, table, k_scale, v_scale):
-    """Shared argument checks; returns (int8, table as contiguous int32)."""
+def _check(name, q, k_pool, v_pool, table, k_scale, v_scale, rows):
+    """Shared argument checks (``rows``: the kernel's rows per CTA);
+    returns (int8, table as contiguous int32)."""
     int8 = check_kv(name, k_pool, v_pool, k_scale, v_scale)
     b, h, _, hd = q.shape
     kvh = k_pool.shape[1]
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise TypeError(f"{name} kernel takes fp32 q with a contiguous head "
                         "dim")
-    if h % kvh or hd > 128 or h // kvh > ROWS or k_pool.shape[3] != hd:
+    if h % kvh or hd > 128 or h // kvh > rows or k_pool.shape[3] != hd:
         raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
     if table.dim() != 2 or table.shape[0] != b:
         raise ValueError(f"{name}: table must be [B={b}, mb], got "
@@ -128,7 +129,8 @@ def _pool_args(k_pool, v_pool, k_scale, v_scale):
 def _launch_flash(q, k_pool, v_pool, table, kv_len, qpos, *, scale, window,
                   causal, k_scale, v_scale):
     name = "paged_flash_attention_lse"
-    int8, table = _check(name, q, k_pool, v_pool, table, k_scale, v_scale)
+    int8, table = _check(name, q, k_pool, v_pool, table, k_scale, v_scale,
+                         flash.ROWS)
     if (causal or window > 0) and qpos is None:
         raise ValueError("causal or window masking needs qpos")
     b, h, n, hd = q.shape
@@ -143,7 +145,9 @@ def _launch_flash(q, k_pool, v_pool, table, kv_len, qpos, *, scale, window,
              table.data_ptr(), table.shape[1], page, kv_len.data_ptr(),
              None if qpos is None else qpos.data_ptr(),
              o.data_ptr(), m.data_ptr(), l.data_ptr(),
-             b, h, kvh, n, hd, max(1, ROWS // (h // kvh)), int(causal),
+             *flash.scratch_for(q.device, b, kvh, n, h // kvh,
+                                table.shape[1] * page, hd),
+             b, h, kvh, n, hd, flash.queries_per_cta(h // kvh), int(causal),
              int(window), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(name, err)
@@ -183,7 +187,8 @@ def paged_flash_attention_lse(q, k_pool, v_pool, table, kv_len, qpos=None, *,
 def _launch_tree(q, k_pool, v_pool, table, mask, *, scale, k_scale,
                  v_scale):
     name = "paged_tree_block_attention"
-    int8, table = _check(name, q, k_pool, v_pool, table, k_scale, v_scale)
+    int8, table = _check(name, q, k_pool, v_pool, table, k_scale, v_scale,
+                         tree_block.ROWS)
     b, h, n, hd = q.shape
     kvh, page = k_pool.shape[1], k_pool.shape[2]
     t = mask.shape[-1]
@@ -199,7 +204,8 @@ def _launch_tree(q, k_pool, v_pool, table, mask, *, scale, k_scale,
              *_pool_args(k_pool, v_pool, k_scale, v_scale),
              table.data_ptr(), table.shape[1], page, mask.data_ptr(),
              o.data_ptr(), m.data_ptr(), l.data_ptr(),
-             b, h, kvh, n, t, hd, max(1, ROWS // (h // kvh)), float(scale),
+             b, h, kvh, n, t, hd, max(1, tree_block.ROWS // (h // kvh)),
+             float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(name, err)
     if int8:

@@ -22,12 +22,18 @@ the same fp32 numbers to the same int8 values bit for bit.
 
 ``dequant_matmul(x, w_q, w_scale)`` computes ``x [M,K] f32 @ int8 w_q
 [K,N]`` accumulated in fp32 and multiplies by the per-out-channel scale
-``[N]`` once, after the whole sum (the reference's association).  What
-bounds it on an H100: the int8 weight bytes at the main path's M (1 to 8
-rows); see ``csrc/dequant_matmul.cu``.  The sum over K of an output
-element is taken in an order that depends on K and N only, never on M or
+``[N]`` once, after the whole sum (the reference's association).  The
+kernel (``csrc/dequant_matmul.cu``) runs the products on the tensor cores:
+an int8 weight is exact in bf16, and x is split exactly into ``PASSES``
+bf16 terms (``split_bf16``), each multiplied by the same weights with fp32
+accumulation.  What bounds it on an H100: the int8 weight bytes at the
+main path's M (1 to 8 rows), the tensor cores at a prefill's M = 128.
+The K range of a column tile is split across CTAs by ``k_split``, which
+depends on K and N only, and an output element's sum never depends on M or
 on the row's place in the tile, so a row gives the same bits at M = 1
-(decode) and at M = 8 (tree verify).
+(decode), M = 8 (tree verify) and M = 128 (prefill).  One launch per call:
+the last CTA of a column tile sums the splits' partials in split order; the
+wrapper keeps the partials buffer and the per-tile counters on the card.
 
 Dispatch: a CPU tensor goes to ``dequant_matmul_plain``; a CUDA tensor
 goes to the kernel, or the wrapper raises.  ``launches`` on the wrapper
@@ -44,15 +50,22 @@ from repro_torch.kernels import build
 Q_MAX = 127.0
 
 # kernel tiling (csrc/dequant_matmul.cu): output columns per CTA, K rows
-# staged per step, and the CTA count the K split aims for (two per SM)
+# per ring stage, rows of x per CTA; the K plan: a split takes at most
+# ROWS_PER_SPLIT K rows where K allows, and narrow shapes split further, up
+# to SLOTS CTAs (about five per SM of an H100), never below
+# MIN_K_PER_SPLIT rows or above MAX_SPLITS splits
 BLOCK_N = 128
-BLOCK_K = 256
-TARGET_CTAS = 264
-MIN_K_PER_SPLIT = 512
+BLOCK_K = 64
+BLOCK_M = 128
+SLOTS = 660
+ROWS_PER_SPLIT = 1024
+MIN_K_PER_SPLIT = 128
+MAX_SPLITS = 32
+# bf16 terms of x in the kernel's products (3 carry fp32's 24 bits)
+PASSES = 3
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]
-
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]
 
 def _div_q_max(amax: torch.Tensor) -> torch.Tensor:
     """amax / 127 as a true division.  PyTorch's CUDA division by a Python
@@ -112,15 +125,32 @@ def dequant_matmul_plain(x, w_q, w_scale):
 
 def k_split(k: int, n: int):
     """(splits, rows per split): how many CTAs share the K range of one
-    column tile, and how many K rows each takes.  It depends on K and N
-    only, so an output element's sum order never depends on M.  It aims
-    for TARGET_CTAS CTAs over the N tiles, with at least MIN_K_PER_SPLIT
-    rows per split, each split a whole number of BLOCK_K steps."""
+    column tile, and how many K rows each takes, each split a whole number
+    of BLOCK_K steps.  It depends on K and N only, so an output element's
+    sum order never depends on M.  A long K range is cut into splits of
+    about ROWS_PER_SPLIT rows; a shape with few column tiles splits further
+    so that its CTAs approach SLOTS (at least MIN_K_PER_SPLIT rows, at most
+    MAX_SPLITS splits)."""
     tiles = -(-n // BLOCK_N)
-    want = max(1, min(-(-TARGET_CTAS // tiles), k // MIN_K_PER_SPLIT))
+    fill = min(k // MIN_K_PER_SPLIT, SLOTS // tiles)
+    want = max(1, min(MAX_SPLITS, max(k // ROWS_PER_SPLIT, fill)))
     chunk = -(-k // want)
     chunk = -(-chunk // BLOCK_K) * BLOCK_K
     return -(-k // chunk), chunk
+
+
+def split_bf16(x: torch.Tensor, passes: int = PASSES):
+    """The kernel's split of fp32 ``x`` into ``passes`` bf16 terms: each
+    term is the top 16 bits of what is left (truncation, so no term
+    overflows), and each remainder is exact in fp32.  Three terms sum back
+    to ``x`` exactly, except where the last falls below bf16's subnormal
+    range."""
+    terms, r = [], x.float()
+    for _ in range(passes):
+        hi = (r.view(torch.int32) & -65536).view(torch.float32)
+        terms.append(hi.to(torch.bfloat16))
+        r = r - hi
+    return terms
 
 
 def _launch(x, w_q, w_scale):
@@ -140,11 +170,12 @@ def _launch(x, w_q, w_scale):
                          f"{tuple(w_scale.shape)} do not chain")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     splits, chunk = k_split(k, n)
-    work = (torch.empty((splits, m, n), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
+    work, counters = build.scratch(
+        "dequant_matmul", x.device, splits * m * n if splits > 1 else 0,
+        -(-m // BLOCK_M) * -(-n // BLOCK_N))
     fn = build.launcher("dequant_matmul", _ARGTYPES)
     err = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-             out.data_ptr(), None if work is None else work.data_ptr(),
+             out.data_ptr(), work.data_ptr(), counters.data_ptr(),
              m, k, n, splits, chunk,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("dequant_matmul", err)

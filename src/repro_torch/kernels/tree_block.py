@@ -34,8 +34,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash import (ROWS, check_kv, dequant_kv,
+from repro_torch.kernels.flash import (check_kv, dequant_kv,
                                       masked_softmax_lse, scale_args)
+
+# (query, head) rows per CTA: the kernel takes max(1, ROWS // rep) queries
+# of all rep heads of a KV head per CTA (attn_common.cuh kMaxRows)
+ROWS = 16
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)

@@ -1,7 +1,8 @@
 """The paged attention kernels of the port on a card: each against its
 plain version and against the dense kernel on the gathered view, at the
 main path's shapes (the target's and the draft's tree verify at bucket 3,
-decode), in fp32 and int8.  Every test here is marked ``cuda_kernel`` and
+decode), in fp32 and int8; and the dense flash kernel over long caches,
+whose chunk merge takes its other path.  Every test here is marked ``cuda_kernel`` and
 skips on a host without a card.  The file imports no JAX, so it runs on a
 machine that has only the port's dependencies:
 
@@ -127,3 +128,31 @@ def test_paged_tree_matches_plain_and_dense(cuda, int8, h, kvh, hd):
                                           **dkw)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.cuda_kernel
+@pytest.mark.parametrize("length", [1024, 6144])
+def test_flash_long_cache_matches_plain_and_rows_alone(cuda, length):
+    """Caches of 16 and 96 chunks: the last CTA's merge with the chunk
+    weights in shared memory, and (96 chunks at head_dim 128) the merge
+    that reads them from global memory; each row equals a B = 1 call."""
+    gen = torch.Generator().manual_seed(length)
+    b, h, kvh, n, hd = 2, 64, 8, 8, 128
+    q = torch.randn(b, h, n, hd, generator=gen).to(cuda)
+    k, v = (torch.randn(b, length, kvh, hd, generator=gen).to(cuda)
+            .transpose(1, 2) for _ in range(2))
+    kvl = torch.tensor([length - 5, length // 3], dtype=torch.int32,
+                       device=cuda)
+    qpos = ((kvl.long() - 1)[:, None] + torch.arange(n, device=cuda) // 2
+            ).to(torch.int32)
+    got = flash.flash_attention_lse(q, k, v, kvl, qpos)
+    want = flash.flash_attention_lse_plain(q, k, v, kvl, qpos,
+                                           scale=hd ** -0.5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    for r in range(b):
+        alone = flash.flash_attention_lse(q[r:r + 1], k[r:r + 1],
+                                          v[r:r + 1], kvl[r:r + 1],
+                                          qpos[r:r + 1])
+        for g, a in zip(got, alone):
+            assert torch.equal(g[r], a[0])

@@ -298,11 +298,26 @@ def test_plain_versions_count_no_launches():
 
 def test_k_split_depends_on_k_and_n_only():
     """The dequant-matmul kernel's split of K: whole BLOCK_K steps that
-    cover K exactly, more splits for narrow N, none for short K."""
+    cover K exactly, at least MIN_K_PER_SPLIT rows a split where K allows,
+    at most ROWS_PER_SPLIT rows from a long K, more splits for narrow N,
+    none for short K, and the same plan whatever M is (k_split takes no
+    M)."""
     for k, n in ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192),
                  (2048, 512), (33, 19), (300, 7)):
         splits, chunk = quant.k_split(k, n)
         assert chunk % quant.BLOCK_K == 0
         assert (splits - 1) * chunk < k <= splits * chunk
+        assert splits == 1 or chunk >= quant.MIN_K_PER_SPLIT
+        assert splits <= quant.MAX_SPLITS
     assert quant.k_split(8192, 1024)[0] > quant.k_split(8192, 28672)[0]
-    assert quant.k_split(300, 7) == (1, 512)
+    # a long K range: splits of at most ROWS_PER_SPLIT rows (w_gate 8 of
+    # 1024); a narrow shape splits further, up to SLOTS CTAs (w_q: 10)
+    assert quant.k_split(8192, 28672) == (8, 1024)
+    assert quant.k_split(8192, 8192) == (10, 832)
+    for k, n in ((8192, 8192), (8192, 28672), (28672, 8192), (8192, 1024)):
+        assert quant.k_split(k, n)[1] <= quant.ROWS_PER_SPLIT
+    for k, n in ((2048, 2048), (2048, 8192), (8192, 2048)):
+        splits, _ = quant.k_split(k, n)
+        assert splits * -(-n // quant.BLOCK_N) <= quant.SLOTS
+    assert quant.k_split(33, 19) == (1, 64)
+    assert quant.k_split(300, 7) == (2, 192)
