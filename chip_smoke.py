@@ -5,8 +5,11 @@
 
 Phases, each printed as JSON objects, one per line:
 
-  1. card      - device name, power limit (as nvidia-smi reports it) and
-                 the kernels' build time from ``src/repro_torch/csrc``;
+  1. card      - device name, power limit (as nvidia-smi reports it), the
+                 kernels' build time from ``src/repro_torch/csrc`` and what
+                 each kernel instance compiles to (ptxas registers, shared
+                 memory and spills; counts of tensor-core MMAs and
+                 asynchronous copies in its SASS);
   2. kernels   - each hand-written kernel, in each of its modes (fp32 and
                  int8 K/V for the attention kernels), against its plain
                  PyTorch version on the card at the main path's shapes: max
@@ -14,10 +17,13 @@ Phases, each printed as JSON objects, one per line:
                  library times (CUDA events) and the least time the card
                  could take; the dequant-matmul's M-independence (every row
                  of each case, and rows of an M = 128 call, give the same
-                 bits as M = 1 calls); the paged flash kernel's batch
+                 bits as M = 1 calls); the paged attention kernels' batch
                  independence (each row of a bucket-3 case gives the same
-                 bits as a B = 1 call); and one CUDA launch per wrapper call
-                 of the dequant-matmul and flash kernels (torch.profiler);
+                 bits as a B = 1 call); the tree-verify entry points, whose tree
+                 kernel merges the committed-prefix half in its epilogue,
+                 against ops.combine_lse over the two kernels' halves; and
+                 one CUDA launch per wrapper call of every kernel, two per
+                 tree-verify entry point (torch.profiler);
   3. serve     - the main path: ServingEngine(mode="pipedec") over the
                  paper's pair at published widths (target cut to 8 layers,
                  one per pipeline stage; seeded random weights), greedy
@@ -66,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -75,17 +82,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks: HBM bandwidth, the fp32 rate outside the tensor
-# cores (the tree kernel's CUDA-core FMAs), and the tensor cores' dense TF32
-# (the flash kernel's 3xTF32 products) and bf16 rates (the dequant-matmul's
-# bf16 passes).
+# Published H100 SXM peaks: HBM bandwidth and the tensor cores' dense TF32
+# (the attention kernels' 3xTF32 products) and bf16 rates (the
+# dequant-matmul's bf16 passes).
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
-# products per fp32 product: the flash kernel's 3xTF32, the dequant-matmul's
-# bf16 terms of x (kernels/quant.py PASSES)
+# products per fp32 product: the attention kernels' 3xTF32, the
+# dequant-matmul's bf16 terms of x (kernels/quant.py PASSES)
 TF32_PASSES = 3
+# SASS instructions counted per kernel instance: the tensor-core MMAs of the
+# attention kernels (TF32) and of the dequant-matmul (bf16), and cp.async
+SASS_COUNTED = ("HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16", "LDGSTS")
 
 # kernel vs plain tolerances: fp32 sums taken in another order.  The int8
 # modes dequantize each row exactly as the plain versions do (float(q) *
@@ -93,6 +101,12 @@ TF32_PASSES = 3
 TOL_O_ABS = 1e-4
 TOL_M_REL = 1e-5
 TOL_L_REL = 1e-4
+# the tree kernel's merge epilogue against ops.combine_lse over the
+# kernel's own two halves: the same arithmetic in the same order, so equal
+# bits are expected; 1e-6 (a few ulps of outputs of size about 1) would
+# cover an expf that differs by an ulp between the CUDA math library
+# PyTorch was built with and the one nvcc links here
+TOL_MERGE = 1e-6
 # dequant_matmul vs plain: outputs of size about 1 (LeCun-normal weights,
 # as in the model), fp32 sums over K taken in another order than cuBLAS's
 TOL_DQ_ABS = 1e-4
@@ -176,28 +190,24 @@ def cuda_ms(fn, batches: int = 21, per_batch: int = 10):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False,
-           tensor_cores=False):
+def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False):
     """Least time (ms) for attention over ``valid`` [B,n,L] (query may
     attend key): every input byte read once (q, the K/V rows some query of
     the batch row attends, at 1 byte an element plus 4 bytes of scale per
-    row and KV head when ``int8``, ``extra_bytes`` of masks and bounds),
-    every output byte written once (o, m, l); operations 4*hd per (head,
-    query, key) pair that is attended (QK and PV), at the fp32 CUDA-core
-    peak, or, for a kernel that runs them on the tensor cores
-    (``tensor_cores``: the flash kernel), three TF32 products each at the
-    TF32 peak."""
+    row and KV head when ``int8``, ``extra_bytes`` of masks, bounds and a
+    merged past half), every output byte written once (o, m, l);
+    operations 4*hd per (head, query, key) pair that is attended (QK and
+    PV), each fp32 product three TF32 products on the tensor cores (both
+    attention kernels), at the TF32 peak."""
     rows = int(valid.any(1).sum())                 # attended keys over B
     kv_row = 2 * (hd + 4) if int8 else 2 * 4 * hd
     nbytes = 4 * (2 * b * h * n * hd + 2 * b * h * n) + rows * kvh * kv_row
     nbytes += extra_bytes
     flops = 4 * hd * (h * int(valid.sum()))
-    if tensor_cores:
-        return _roofline(nbytes, TF32_PASSES * flops, TF32_FLOP_PER_S)
-    return _roofline(nbytes, flops)
+    return _roofline(nbytes, TF32_PASSES * flops, TF32_FLOP_PER_S)
 
 
-def _roofline(nbytes, flops, peak=FP32_FLOP_PER_S):
+def _roofline(nbytes, flops, peak):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -394,8 +404,7 @@ def phase_kernels(state):
         def library(q=q, k=lib_k, v=lib_v, lib_mask=lib_mask):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
                                                   enable_gqa=rep > 1)
-        bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8,
-                                    row_name.startswith("flash"))
+        bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8)
         (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_eager = cuda_ms(library)
         row = {"phase": "kernels", "case": name, "kernel": row_name,
@@ -418,6 +427,7 @@ def phase_kernels(state):
             library_ms=lib_ms))
     bad += dequant_cases(torch, dev, summary)
     bad += paged_cases(torch, dev, summary)
+    bad += merged_cases(torch, dev)
     bad += one_launch_cases(torch, dev)
     state["kernel_summary"] = summary
     if bad:
@@ -541,9 +551,9 @@ def _paged_pool(torch, dense, horizon, gen):
 
 def paged_cases(torch, dev, summary):
     """The paged kernels against their plain versions and, bit for bit,
-    against the dense kernel on the view gathered through the table; with
-    kernel, dense, plain and library times and the bound.  Returns the
-    failed cases."""
+    against the dense kernel on the view gathered through the table and
+    each batch row against a B = 1 call; with kernel, dense, plain and
+    library times and the bound.  Returns the failed cases."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash, paged, tree_block
     from repro_torch.kernels.flash import dequant_kv, valid_mask
@@ -625,20 +635,22 @@ def paged_cases(torch, dev, summary):
             ref = dense_run()
             bit_equal = all(torch.equal(g, r) for g, r in zip(got, ref))
             err_dense = float((got[0] - ref[0]).abs().max())
-            # flash: each batch row bit-equal to a B = 1 call on it alone
-            # (a row's chunk plan and sums depend on its own keys only)
-            rows_alone = None
-            if kv_len:
-                rows_alone = all(
-                    all(torch.equal(g[r], a[0]) for g, a in zip(
-                        got, paged.paged_flash_attention_lse(
-                            q[r:r + 1], pools["k"], pools["v"],
-                            table[r:r + 1], kvl[r:r + 1], qpos[r:r + 1],
-                            **sc)))
-                    for r in range(b))
+            # each batch row bit-equal to a B = 1 call on it alone (a row's
+            # plan and sums depend on its own keys only)
+            def alone(r, q=q, pools=pools, table=table, sc=sc,
+                      kv_len=kv_len):
+                if kv_len:
+                    return paged.paged_flash_attention_lse(
+                        q[r:r + 1], pools["k"], pools["v"], table[r:r + 1],
+                        kvl[r:r + 1], qpos[r:r + 1], **sc)
+                return paged.paged_tree_block_attention(
+                    q[r:r + 1], pools["k"], pools["v"], table[r:r + 1],
+                    mask[r:r + 1], **sc)
+            rows_alone = all(all(torch.equal(g[r], a[0])
+                                 for g, a in zip(got, alone(r)))
+                             for r in range(b))
             ok = (err_o <= TOL_O_ABS and err_m <= TOL_M_REL
-                  and err_l <= TOL_L_REL and bit_equal
-                  and rows_alone is not False)
+                  and err_l <= TOL_L_REL and bit_equal and rows_alone)
             # the library yardstick: SDPA on the gathered (int8:
             # dequantized) fp32 view, made outside the timing; no PyTorch
             # call takes a block table
@@ -648,8 +660,7 @@ def paged_cases(torch, dev, summary):
             def library(q=q, k=lib_k, v=lib_v, mask=valid[:, None]):
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=h // kvh > 1)
-            bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8,
-                                        bool(kv_len))
+            bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8)
             (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
             (d_ms, d_eager), (lib_ms, lib_eager) = (cuda_ms(dense_run),
                                                      cuda_ms(library))
@@ -682,6 +693,137 @@ def paged_cases(torch, dev, summary):
     return bad
 
 
+def merged_cases(torch, dev):
+    """The tree-verify entry points (``ops.tree_attention``, and
+    ``ops.paged_tree_attention`` at bucket 3) at the target's main-path
+    shapes, fp32 and int8: the tree kernel merges the committed-prefix half
+    in its epilogue.  Its output against ``combine_lse`` over the two
+    kernels' standalone halves (bit for bit), against the plain version
+    (o tolerance); the entry point's time against the two halves plus the
+    eager ``combine_lse`` (the composition before the epilogue).  Returns
+    the failed cases."""
+    from repro_torch.kernels import flash, ops, paged, tree_block
+    from repro_torch.kernels.quant import quantize_rows
+    h, kvh, n, hd, t = 64, 8, 8, 128, PAGED_T
+    bad = []
+    for paged_mode in (False, True):
+        for int8 in (False, True):
+            gen = torch.Generator().manual_seed(11 + 2 * paged_mode + int8)
+            b = PAGED_B if paged_mode else 1
+            kv_len = (90, 200, 130)[:b] if paged_mode else (200,)
+            q = torch.randn(b, n, h, hd, generator=gen).to(dev).transpose(
+                1, 2)                                  # as the model's q
+            mask = torch.rand(b, n, t, generator=gen) < 0.3
+            mask[:, :, 0] = True                       # the root
+            mask = mask.to(dev)
+            kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+            qpos = ((kvl.long() - 1)[:, None]
+                    + torch.arange(n, device=dev) // 2).to(torch.int32)
+            halves = {}
+            for half, length in (("past", DB_MAX_LEN), ("tree", t)):
+                d = {}
+                for part in ("k", "v"):
+                    x = torch.randn(b, length, kvh, hd, generator=gen).to(dev)
+                    if int8:
+                        x, d[part + "_scale"] = quantize_rows(x)
+                    d[part] = x
+                if paged_mode:
+                    horizon = ([min(length, k + t) for k in kv_len]
+                               if half == "past" else [t] * b)
+                    views = {}
+                    for key, x in d.items():
+                        views[key], table = _paged_pool(
+                            torch, x, horizon, torch.Generator().manual_seed(
+                                len(half)))
+                    halves[half] = (views, table)
+                else:
+                    halves[half] = ({k: x.transpose(1, 2)
+                                     for k, x in d.items()}, None)
+            (pk, ptable), (tk, ttable) = halves["past"], halves["tree"]
+            psc = {k: pk[k] for k in ("k_scale", "v_scale") if int8}
+            tsc = {k: tk[k] for k in ("k_scale", "v_scale") if int8}
+            esc = {"kt_scale": tsc.get("k_scale"),
+                   "vt_scale": tsc.get("v_scale")} if int8 else {}
+            if paged_mode:
+                def past_fn(q=q, pk=pk, ptable=ptable, kvl=kvl, qpos=qpos,
+                            psc=psc):
+                    return paged.paged_flash_attention_lse(
+                        q, pk["k"], pk["v"], ptable, kvl, qpos, **psc)
+
+                def tree_fn(past=None, q=q, tk=tk, ttable=ttable, mask=mask,
+                            tsc=tsc):
+                    return paged.paged_tree_block_attention(
+                        q, tk["k"], tk["v"], ttable, mask, past=past, **tsc)
+
+                def entry(q=q, pk=pk, ptable=ptable, tk=tk, ttable=ttable,
+                          mask=mask, kvl=kvl, qpos=qpos, psc=psc, esc=esc):
+                    return ops.paged_tree_attention(
+                        q, pk["k"], pk["v"], ptable, tk["k"], tk["v"],
+                        ttable, mask, kvl, qpos=qpos, **psc, **esc)
+
+                def plain(q=q, pk=pk, ptable=ptable, tk=tk, ttable=ttable,
+                          mask=mask, kvl=kvl, qpos=qpos, psc=psc, tsc=tsc):
+                    scale = hd ** -0.5
+                    past = paged.paged_flash_attention_lse_plain(
+                        q, pk["k"], pk["v"], ptable, kvl, qpos, scale=scale,
+                        **psc)
+                    return paged.paged_tree_block_attention_plain(
+                        q, tk["k"], tk["v"], ttable, mask, scale=scale,
+                        past=past, **tsc)
+            else:
+                def past_fn(q=q, pk=pk, kvl=kvl, qpos=qpos, psc=psc):
+                    return flash.flash_attention_lse(
+                        q, pk["k"], pk["v"], kvl, qpos, **psc)
+
+                def tree_fn(past=None, q=q, tk=tk, mask=mask, tsc=tsc):
+                    return tree_block.tree_block_attention(
+                        q, tk["k"], tk["v"], mask, past=past, **tsc)
+
+                def entry(q=q, pk=pk, tk=tk, mask=mask, kvl=kvl, qpos=qpos,
+                          psc=psc, esc=esc):
+                    return ops.tree_attention(
+                        q, pk["k"], pk["v"], tk["k"], tk["v"], mask, kvl,
+                        qpos=qpos, **psc, **esc)
+
+                def plain(q=q, pk=pk, tk=tk, mask=mask, kvl=kvl, qpos=qpos,
+                          psc=psc, tsc=tsc):
+                    scale = hd ** -0.5
+                    past = flash.flash_attention_lse_plain(
+                        q, pk["k"], pk["v"], kvl, qpos, scale=scale, **psc)
+                    return tree_block.tree_block_attention_plain(
+                        q, tk["k"], tk["v"], mask, scale=scale, past=past,
+                        **tsc)
+
+            def halves_then_combine(past_fn=past_fn, tree_fn=tree_fn):
+                return tree_block.combine_lse([past_fn(), tree_fn()])
+            got = entry()
+            halves_out = (past_fn(), tree_fn())
+            torch.cuda.synchronize()
+            want = tree_block.combine_lse(list(halves_out))
+            bit_equal = torch.equal(got, want)
+            err_halves = float((got - want).abs().max())
+            err_plain = float((got - plain()).abs().max())
+            ok = err_halves <= TOL_MERGE and err_plain <= TOL_O_ABS
+            row = {"phase": "kernels",
+                   "case": ("paged " if paged_mode else "") + "merged "
+                   "tree verify target B=%d T=%d%s" % (b, t,
+                                                       " int8" * int8),
+                   "entry": "ops." + ("paged_" * paged_mode) +
+                   "tree_attention",
+                   "bit_equal_combine_lse": bit_equal,
+                   "max_abs_err_vs_combine_lse": err_halves,
+                   "tol_vs_combine_lse": TOL_MERGE,
+                   "max_abs_err_vs_plain": err_plain, "ok": ok,
+                   "entry_ms": cuda_ms(entry)[0],
+                   "halves_then_combine_lse_ms": cuda_ms(
+                       halves_then_combine)[0],
+                   "plain_ms": cuda_ms(plain)[0]}
+            emit(row)
+            if not ok:
+                bad.append(row["case"])
+    return bad
+
+
 def _cuda_launches(torch, fn):
     """CUDA kernel launches (``cudaLaunchKernel`` calls) that one call of
     ``fn`` makes, counted by torch.profiler; ``fn`` runs once before, so
@@ -700,9 +842,12 @@ def _cuda_launches(torch, fn):
 def one_launch_cases(torch, dev):
     """Each wrapper call of the redesigned kernels is one CUDA launch:
     dequant_matmul with and without a K split and at M = 128, the flash
-    kernel dense and paged, fp32 and int8, over several chunks.  The
-    launch counters count calls, one each.  Returns failed cases."""
-    from repro_torch.kernels import flash, paged, quant
+    kernel dense and paged, fp32 and int8, over several chunks, and the
+    tree kernel dense and paged, fp32 and int8; a tree-verify entry point
+    (ops.tree_attention, ops.paged_tree_attention) is two, flash and the
+    tree kernel with its merge epilogue.  The launch counters count calls,
+    one each.  Returns failed cases."""
+    from repro_torch.kernels import flash, ops, paged, quant, tree_block
     from repro_torch.kernels.quant import quantize_rows
     from repro_torch.models import paging
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -714,41 +859,75 @@ def one_launch_cases(torch, dev):
         cases.append((f"dequant_matmul M={m} K={k} N={n} splits="
                       f"{quant.k_split(k, n)[0]}",
                       lambda x=x, q8=q8, sc=sc: quant.dequant_matmul(
-                          x, q8, sc)))
+                          x, q8, sc), 1))
     q = torch.randn(1, 64, 8, 128, generator=gen, device=dev)
     kvl = torch.tensor([200], dtype=torch.int32, device=dev)
     qpos = (199 + torch.arange(8, device=dev) // 2)[None].to(torch.int32)
     table = (1 + torch.arange(32, device=dev, dtype=torch.int32))[None]
+    t_table = table[:, :paging.n_blocks(PAGED_T, PAGE)].contiguous()
+    mask = torch.rand(1, 8, PAGED_T, generator=gen, device=dev) < 0.3
+
+    def pool(x):
+        """[1, L, ...] as a pool view behind ``table``: the null block,
+        then x's rows in order, the last block padded with zeros."""
+        pad = x.new_zeros((-x.shape[1] % PAGE, *x.shape[2:]))
+        return paging.pool_view(torch.cat([torch.zeros_like(x[0, :PAGE]),
+                                           x[0], pad]), PAGE)
     for int8 in (False, True):
-        kv, sc = [], {}
+        kv, sc, tkv, tsc = [], {}, [], {}
         for name in ("k", "v"):
-            x = torch.randn(1, 512, 8, 128, generator=gen, device=dev)
-            if int8:
-                x, sc[name + "_scale"] = quantize_rows(x)
-            kv.append(x)
+            for length, xs, scs in ((512, kv, sc), (PAGED_T, tkv, tsc)):
+                x = torch.randn(1, length, 8, 128, generator=gen, device=dev)
+                if int8:
+                    x, scs[name + "_scale"] = quantize_rows(x)
+                xs.append(x)
         mode = " int8" if int8 else ""
+        heads = {k: v.transpose(1, 2) for k, v in sc.items()}
+        theads = {k: v.transpose(1, 2) for k, v in tsc.items()}
         cases.append(("flash_attention_lse" + mode,
-                      lambda kv=kv, sc=sc: flash.flash_attention_lse(
+                      lambda kv=kv, heads=heads: flash.flash_attention_lse(
                           q, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
-                          kvl, qpos, **{k: v.transpose(1, 2)
-                                        for k, v in sc.items()})))
-        pools = [paging.pool_view(torch.cat([torch.zeros_like(x[0, :PAGE]),
-                                             x[0]]), PAGE)
-                 for x in kv]
-        psc = {k: paging.pool_view(torch.cat([torch.zeros_like(
-            v[0, :PAGE]), v[0]]), PAGE) for k, v in sc.items()}
+                          kvl, qpos, **heads), 1))
+        pools = [pool(x) for x in kv]
+        psc = {k: pool(v) for k, v in sc.items()}
         cases.append(("paged_flash_attention_lse" + mode,
                       lambda pools=pools, psc=psc:
                       paged.paged_flash_attention_lse(
-                          q, pools[0], pools[1], table, kvl, qpos, **psc)))
+                          q, pools[0], pools[1], table, kvl, qpos, **psc), 1))
+        cases.append(("tree_block_attention" + mode,
+                      lambda tkv=tkv, theads=theads:
+                      tree_block.tree_block_attention(
+                          q, tkv[0].transpose(1, 2), tkv[1].transpose(1, 2),
+                          mask, **theads), 1))
+        tpools = [pool(x) for x in tkv]
+        tpsc = {k: pool(v) for k, v in tsc.items()}
+        cases.append(("paged_tree_block_attention" + mode,
+                      lambda tpools=tpools, tpsc=tpsc:
+                      paged.paged_tree_block_attention(
+                          q, tpools[0], tpools[1], t_table, mask, **tpsc), 1))
+        esc = {"kt_scale": theads.get("k_scale"),
+               "vt_scale": theads.get("v_scale")} if int8 else {}
+        cases.append(("ops.tree_attention" + mode,
+                      lambda kv=kv, tkv=tkv, heads=heads, esc=esc:
+                      ops.tree_attention(
+                          q, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
+                          tkv[0].transpose(1, 2), tkv[1].transpose(1, 2),
+                          mask, kvl, qpos=qpos, **heads, **esc), 2))
+        pesc = {"kt_scale": tpsc.get("k_scale"),
+                "vt_scale": tpsc.get("v_scale")} if int8 else {}
+        cases.append(("ops.paged_tree_attention" + mode,
+                      lambda pools=pools, tpools=tpools, psc=psc, pesc=pesc:
+                      ops.paged_tree_attention(
+                          q, pools[0], pools[1], table, tpools[0], tpools[1],
+                          t_table, mask, kvl, qpos=qpos, **psc, **pesc), 2))
     bad, counts = [], {}
-    for name, fn in cases:
+    for name, fn, want in cases:
         counts[name] = _cuda_launches(torch, fn)
-        if counts[name] != 1:
-            bad.append(f"{name}: {counts[name]} launches")
-    emit({"phase": "kernels", "check": "one CUDA launch per wrapper call "
-          "(torch.profiler, cudaLaunchKernel)", "launches": counts,
-          "ok": not bad})
+        if counts[name] != want:
+            bad.append(f"{name}: {counts[name]} launches, not {want}")
+    emit({"phase": "kernels", "check": "one CUDA launch per wrapper call, "
+          "two per tree-verify entry point (torch.profiler, "
+          "cudaLaunchKernel)", "launches": counts, "ok": not bad})
     return bad
 
 
@@ -1276,6 +1455,47 @@ def phase_cli(state):
 
 
 # ---------------------------------------------------------------------------
+def _ptxas(text: str):
+    """ptxas's report lines (registers, shared memory, spills) by mangled
+    kernel name, from nvcc's ``-Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+            out[cur] = []
+        elif cur and ("registers" in line or "spill" in line):
+            out[cur].append(line.split("ptxas info    :")[-1].strip())
+    return out
+
+
+def compiled(build, name: str, nvcc_report: str):
+    """One row per kernel instance of source ``name``: its demangled name,
+    ptxas's report (when this run built it) and the SASS_COUNTED counts of
+    its code (``cuobjdump -sass`` of the built library)."""
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if line.strip().startswith("Function : "):
+            cur = line.split(":", 1)[1].strip()
+            counts[cur] = dict.fromkeys(SASS_COUNTED, 0)
+        elif cur:
+            for key in SASS_COUNTED:
+                if re.search(rf"\b{re.escape(key)}\b", line):
+                    counts[cur][key] += 1
+    ptxas = _ptxas(nvcc_report)
+    keys = sorted(set(counts) | set(ptxas))
+    try:
+        pretty = subprocess.run(["c++filt"], input="\n".join(keys),
+                                capture_output=True, text=True,
+                                check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        pretty = keys
+    return [{"kernel": p, "ptxas": ptxas.get(k), "sass": counts.get(k)}
+            for k, p in zip(keys, pretty)]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         bail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -1298,13 +1518,13 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build(build.KERNELS)
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in text.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, text in reports.items()}
     emit({"phase": "card", "device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi[0] if smi else None,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s})
+    for name in build.KERNELS:
+        for row in compiled(build, name, reports.get(name, "")):
+            emit({"phase": "card", "source": name, **row})
 
     state, failed = {"launches": {}}, []
     for name, phase in (("kernels", phase_kernels), ("serve", phase_serve),

@@ -34,12 +34,12 @@
 //         contiguous; k_scale, v_scale [Nb, KV, page]
 //   table [B, mb] int32: logical key t of row b is row t % page of
 //         physical block table[b, t / page]; L = mb * page
-// Only a key's address changes (PagedRows below, against DenseRows): the
-// plan, the tiles, the masks and the summation order are the dense
-// kernel's, so the paged kernel over a pool gives the same bits as the
-// dense kernel over the gathered view.  Masking stays logical; keys at or
-// past a CTA's bound are zero-filled, never read, so the null block that
-// unallocated logical blocks alias is never attended.
+// Only a key's address changes (PagedRows against DenseRows, in
+// attn_common.cuh): the plan, the tiles, the masks and the summation order
+// are the dense kernel's, so the paged kernel over a pool gives the same
+// bits as the dense kernel over the gathered view.  Masking stays
+// logical; keys at or past a CTA's bound are zero-filled, never read, so
+// the null block that unallocated logical blocks alias is never attended.
 //
 // What bounds it on an H100: bytes, and at the main path's sizes (B = 1,
 // a few hundred cached keys, 8 KV heads of 128) launch latency and the
@@ -88,16 +88,11 @@
 
 namespace {
 
-using attn::allow_smem;
-using attn::can_vec;
-using attn::kMinL;
-using attn::kNegInf;
+using namespace attn;
 
 constexpr int kThreads = 256;           // 8 warps: a row tile and key half each
 constexpr int kMaxRows = 64;            // (query, head) rows per CTA
 constexpr int kTile = 32;               // keys per shared-memory tile
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
 
 __host__ __device__ constexpr int chunk_keys(int hd) {
   return hd > 64 ? 64 : 128;
@@ -120,181 +115,6 @@ struct Smem {
       4 * ((size_t)kQ + 2 * kBufs * (size_t)kKV + 4 * (size_t)kSc) +
       4 * (size_t)kRaw;
 };
-
-// x as big + small TF32 parts: big keeps the top 10 mantissa bits (a
-// mask, where cvt.rna.tf32 costs a rounding sequence on this card), small
-// is the exact remainder, whose low 13 bits the MMA ignores.  big * big
-// plus the two cross products carry about 21 bits of each product.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(x) & 0xFFFFE000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Columns d, d + 1 of a row: one 8-byte write when both lie in the row
-// (`left` = head_dim - d) and it is aligned, so a warp's store covers whole
-// 32-byte sectors (the last CTA reads the partials back; sectors written
-// in pieces are slow to read).
-__device__ __forceinline__ void store2(float* p, float a, float b, int left) {
-  if (left >= 2 && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  } else if (left >= 1) {
-    p[0] = a;
-    if (left >= 2) p[1] = b;
-  }
-}
-
-// Where logical key t of the CTA's (batch row, KV head) lives, in elements
-// from the K/V (`kv`) and scale (`sc`) base pointers.  A dense cache keeps
-// key t at row t of the (b, g) slice.
-struct DenseRows {
-  long long k0, kl, s0, sl;
-  __device__ __forceinline__ long long kv(int t) const { return k0 + t * kl; }
-  __device__ __forceinline__ long long sc(int t) const { return s0 + t * sl; }
-};
-
-// A block-paged cache keeps key t in row t % page of physical block
-// table[b, t / page]; blocks are kb (K/V) and sb (scales) elements apart.
-// The table is read as each copy starts, a tile ahead of its use.
-struct PagedRows {
-  const int* trow;
-  int page;
-  long long k0, kb, kl, s0, sb, sl;
-  __device__ __forceinline__ long long kv(int t) const {
-    return k0 + (long long)__ldg(trow + t / page) * kb +
-           (long long)(t % page) * kl;
-  }
-  __device__ __forceinline__ long long sc(int t) const {
-    return s0 + (long long)__ldg(trow + t / page) * sb +
-           (long long)(t % page) * sl;
-  }
-};
-
-// Start the copies of the tile of keys [t0, t0 + 32): keys at or past
-// `tend` are zero-filled.  fp32: straight into the padded K/V tiles.
-template <int HD, class Rows>
-__device__ __forceinline__ void load_tile(
-    const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__, const float* __restrict__, const Rows& rows,
-    int t0, int tend, int hd, bool vec, float* ks, float* vs, int8_t*,
-    int8_t*, float*, float*) {
-  constexpr int S = HD + 4;
-  if (vec) {
-    const int per = hd / 4;
-    for (int i = threadIdx.x; i < kTile * per; i += kThreads) {
-      const int j = i / per;
-      const int d = (i - j * per) * 4;
-      const int t = t0 + j;
-      const bool ok = t < tend;
-      const long long a = ok ? rows.kv(t) + d : 0;
-      cp_async16(ks + j * S + d, k + a, ok);
-      cp_async16(vs + j * S + d, v + a, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTile * hd; i += kThreads) {
-      const int j = i / hd;
-      const int d = i - j * hd;
-      const int t = t0 + j;
-      const bool ok = t < tend;
-      const long long a = ok ? rows.kv(t) + d : 0;
-      ks[j * S + d] = ok ? k[a] : 0.f;
-      vs[j * S + d] = ok ? v[a] : 0.f;
-    }
-  }
-}
-
-// int8: the raw rows and their scales (dequantized by dequant_tile once
-// they have landed).
-template <int HD, class Rows>
-__device__ __forceinline__ void load_tile(
-    const int8_t* __restrict__ k, const int8_t* __restrict__ v,
-    const float* __restrict__ ksc, const float* __restrict__ vsc,
-    const Rows& rows, int t0, int tend, int hd, bool vec, float*, float*,
-    int8_t* kr, int8_t* vr, float* kss, float* vss) {
-  if (vec) {
-    const int per = hd / 16;
-    for (int i = threadIdx.x; i < kTile * per; i += kThreads) {
-      const int j = i / per;
-      const int d = (i - j * per) * 16;
-      const int t = t0 + j;
-      const bool ok = t < tend;
-      const long long a = ok ? rows.kv(t) + d : 0;
-      cp_async16(kr + j * HD + d, k + a, ok);
-      cp_async16(vr + j * HD + d, v + a, ok);
-    }
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-      const int t = t0 + j;
-      const bool ok = t < tend;
-      const long long a = ok ? rows.sc(t) : 0;
-      cp_async4(kss + j, ksc + a, ok);
-      cp_async4(vss + j, vsc + a, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTile * hd; i += kThreads) {
-      const int j = i / hd;
-      const int d = i - j * hd;
-      const int t = t0 + j;
-      const bool ok = t < tend;
-      const long long a = ok ? rows.kv(t) + d : 0;
-      kr[j * HD + d] = ok ? k[a] : (int8_t)0;
-      vr[j * HD + d] = ok ? v[a] : (int8_t)0;
-    }
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-      const int t = t0 + j;
-      const bool ok = t < tend;
-      kss[j] = ok ? ksc[rows.sc(t)] : 0.f;
-      vss[j] = ok ? vsc[rows.sc(t)] : 0.f;
-    }
-  }
-}
-
-// float(q) * scale into the fp32 tiles, as the plain version dequantizes.
-template <int HD>
-__device__ __forceinline__ void dequant_tile(const int8_t* kr,
-                                             const int8_t* vr,
-                                             const float* kss,
-                                             const float* vss, int hd,
-                                             float* ks, float* vs) {
-  constexpr int S = HD + 4;
-  for (int i = threadIdx.x; i < kTile * hd; i += kThreads) {
-    const int j = i / hd;
-    const int d = i - j * hd;
-    ks[j * S + d] = (float)kr[j * HD + d] * kss[j];
-    vs[j * S + d] = (float)vr[j * HD + d] * vss[j];
-  }
-}
 
 template <class Elem, bool kPaged, int HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
@@ -405,8 +225,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
       const int r = i / (HD - hd);
       qf[r * S + hd + (i - r * (HD - hd))] = 0.f;
     }
-    load_tile<HD>(k, v, k_scale, v_scale, keys, cs, ce, hd, vec != 0, kst,
-                  vst, kraw, vraw, kss, vss);
+    load_tile<HD>(k, v, k_scale, v_scale, keys, cs, ce, kTile, kThreads, hd,
+                  vec != 0, kst, vst, kraw, vraw, kss, vss);
   }
   cp_async_commit();
 
@@ -434,8 +254,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
     const int t0 = cs + it * kTile;
     if (it + 1 < ntiles) {
       const int nb = buf ^ 1;
-      load_tile<HD>(k, v, k_scale, v_scale, keys, t0 + kTile, ce, hd,
-                    vec != 0, kst + (kInt8 ? 0 : nb * SM::kKV),
+      load_tile<HD>(k, v, k_scale, v_scale, keys, t0 + kTile, ce, kTile,
+                    kThreads, hd, vec != 0, kst + (kInt8 ? 0 : nb * SM::kKV),
                     vst + (kInt8 ? 0 : nb * SM::kKV),
                     kraw + nb * SM::kRaw, vraw + nb * SM::kRaw,
                     kss + nb * SM::kSc, vss + nb * SM::kSc);
@@ -455,7 +275,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
     float* vs = vst + (kInt8 ? 0 : buf * SM::kKV);
     if constexpr (kInt8) {
       dequant_tile<HD>(kraw + buf * SM::kRaw, vraw + buf * SM::kRaw,
-                       kss + buf * SM::kSc, vss + buf * SM::kSc, hd, ks, vs);
+                       kss + buf * SM::kSc, vss + buf * SM::kSc, kTile,
+                       kThreads, hd, ks, vs);
       __syncthreads();
     }
     if (active) {

@@ -4,7 +4,10 @@
 using their log-sum-exp stats: mathematically a joint softmax over the
 concatenation (flash-decoding combination), which is how paper Algorithm
 1's softmax(concat(S_past, S_predict)) is computed without materialising
-the concatenation.
+the concatenation.  The tree entry points hand the committed-prefix half
+to the tree kernel (``past=``), whose epilogue merges the halves on the
+card with ``combine_lse``'s arithmetic; on the CPU the plain versions call
+``combine_lse`` itself.
 
 The device of the tensors picks the implementation: CUDA tensors launch
 the kernels, CPU tensors take their plain versions (see ``flash``,
@@ -25,31 +28,16 @@ from __future__ import annotations
 import math
 from typing import Optional
 
-import torch
 
 from repro_torch.kernels.flash import flash_attention_lse, rows_i32
 from repro_torch.kernels.paged import (paged_flash_attention_lse,
                                        paged_tree_block_attention)
 from repro_torch.kernels.quant import dequant_matmul
-from repro_torch.kernels.tree_block import tree_block_attention
+from repro_torch.kernels.tree_block import combine_lse, tree_block_attention
 
 __all__ = ["combine_lse", "tree_attention", "decode_attention",
            "prefill_attention", "paged_tree_attention",
            "paged_decode_attention", "dequant_matmul", "quant_matmul"]
-
-MIN_L = 1e-30
-
-
-def combine_lse(parts):
-    """parts: list of (o [B,H,n,hd], m [B,H,n], l [B,H,n]), each ``o``
-    normalised within its source.  Returns the joint-softmax result."""
-    m_all = torch.stack([m for _, m, _ in parts]).amax(0)
-    num, den = 0.0, 0.0
-    for o, m, l in parts:
-        w = (l * torch.exp(m - m_all))[..., None]
-        num = num + w * o.float()
-        den = den + w
-    return num / den.clamp_min(MIN_L)
 
 
 def tree_attention(q, k_past, v_past, k_tree, v_tree, tree_mask, past_len,
@@ -59,16 +47,16 @@ def tree_attention(q, k_past, v_past, k_tree, v_tree, tree_mask, past_len,
     """Two-level tree attention: the committed prefix (``past_len`` valid
     rows per batch row, optional sliding ``window`` against ``qpos``) and
     the tree buffer (ancestor mask ``[n,T]`` or ``[B,n,T]``), merged by
-    ``combine_lse``.  q [B,H,n,hd]; k/v_past [B,KV,L,hd]; k/v_tree
-    [B,KV,T,hd]; int8 caches pass ``k_scale``/``v_scale`` [B,KV,L] and
+    ``combine_lse`` (on the card in the tree kernel's epilogue: two
+    launches).  q [B,H,n,hd]; k/v_past [B,KV,L,hd]; k/v_tree [B,KV,T,hd];
+    int8 caches pass ``k_scale``/``v_scale`` [B,KV,L] and
     ``kt_scale``/``vt_scale`` [B,KV,T].  Returns [B,H,n,hd]."""
     past = flash_attention_lse(q, k_past, v_past, past_len, qpos,
                                k_scale=k_scale, v_scale=v_scale,
                                scale=scale, window=window)
-    tree = tree_block_attention(q, k_tree, v_tree, tree_mask,
+    return tree_block_attention(q, k_tree, v_tree, tree_mask,
                                 k_scale=kt_scale, v_scale=vt_scale,
-                                scale=scale)
-    return combine_lse([past, tree]).to(q.dtype)
+                                scale=scale, past=past).to(q.dtype)
 
 
 def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None,
@@ -96,15 +84,15 @@ def paged_tree_attention(q, k_pool, v_pool, table, kt_pool, vt_pool,
     (``past_len`` valid rows per batch row, optional ``window`` against
     ``qpos``) and the tree buffer in pools ``kt/vt_pool`` through
     ``t_table`` (ancestor mask ``[n,T]`` or ``[B,n,T]``), merged by
-    ``combine_lse``.  int8 pools pass their scale pools [Nb,KV,page].
-    Returns [B,H,n,hd]."""
+    ``combine_lse`` (on the card in the paged tree kernel's epilogue).
+    int8 pools pass their scale pools [Nb,KV,page].  Returns [B,H,n,hd]."""
     past = paged_flash_attention_lse(q, k_pool, v_pool, table, past_len,
                                      qpos, k_scale=k_scale, v_scale=v_scale,
                                      scale=scale, window=window)
-    tree = paged_tree_block_attention(q, kt_pool, vt_pool, t_table,
+    return paged_tree_block_attention(q, kt_pool, vt_pool, t_table,
                                       tree_mask, k_scale=kt_scale,
-                                      v_scale=vt_scale, scale=scale)
-    return combine_lse([past, tree]).to(q.dtype)
+                                      v_scale=vt_scale, scale=scale,
+                                      past=past).to(q.dtype)
 
 
 def paged_decode_attention(q, k_pool, v_pool, table, kv_len, *,

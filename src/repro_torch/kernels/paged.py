@@ -20,12 +20,13 @@ flat ``[Nb * page, KV, hd]`` row pools; callers pass them as strided
 ``[Nb, KV, page, hd]`` views (``paging.pool_view``), with no copy.
 
 The kernels are the paged modes of ``csrc/flash_attention_lse.cu`` and
-``csrc/tree_block_attention.cu``: the dense kernels' tile loop, tile size,
-masks and summation order, with only a key's address changed.  So a paged
+``csrc/tree_block_attention.cu``: the dense kernels' plan, tiles, masks
+and summation order, with only a key's address changed.  So a paged
 kernel over a shuffled pool gives the same bits as the dense kernel over
-the gathered view.  What bounds them on an H100 is what bounds the dense
-kernels: bytes, and at the main path's sizes launch latency and the few
-CTAs in flight; the table adds 4 bytes per ``page`` keys.
+the gathered view, and the paged tree kernel takes the same ``past=``
+half to merge in its epilogue.  What bounds them on an H100 is what
+bounds the dense kernels: at the main path's sizes a CTA's serial chain,
+not the bytes; the table adds 4 bytes per ``page`` keys.
 
 Dispatch: CPU tensors go to the plain versions, which gather the dense
 view through the table and run the dense plain version; CUDA tensors go
@@ -53,8 +54,10 @@ _HEAD = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64,
          _P, _P, _I64, _I64, _I64, _P, _I32, _I32]
 _FLASH_ARGTYPES = _HEAD + [_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                            _I32, _I32, _I32, _I32, _I32, _F32, _P]
-_TREE_ARGTYPES = _HEAD + [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
-                          _I32, _F32, _P]
+# mask, the past half (o, m, l), the outputs (o, m, l), B, H, KV, n, T, hd,
+# stage keys, scale, stream
+_TREE_ARGTYPES = _HEAD + [_P, _P, _P, _P, _P, _P, _P] + [_I32] * 7 + [_F32,
+                                                                      _P]
 
 
 def gather_pool(pool, table, length: int):
@@ -94,26 +97,28 @@ def paged_flash_attention_lse_plain(q, k_pool, v_pool, table, kv_len,
 
 def paged_tree_block_attention_plain(q, k_pool, v_pool, table, tree_mask, *,
                                      scale: float, k_scale=None,
-                                     v_scale=None):
+                                     v_scale=None, past=None):
     """Plain PyTorch version of the paged tree kernel: the T = tree_mask
     width logical rows gathered through ``table``, then the dense plain
-    version."""
+    version (merged with ``past`` when it is given)."""
     t = tree_mask.shape[-1]
     k, v, ks, vs = _gather_kv(k_pool, v_pool, table, t, k_scale, v_scale)
     return tree_block_attention_plain(q, k, v, tree_mask, scale=scale,
-                                      k_scale=ks, v_scale=vs)
+                                      k_scale=ks, v_scale=vs, past=past)
 
 
-def _check(name, q, k_pool, v_pool, table, k_scale, v_scale, rows):
-    """Shared argument checks (``rows``: the kernel's rows per CTA);
-    returns (int8, table as contiguous int32)."""
+def _check(name, q, k_pool, v_pool, table, k_scale, v_scale, rows=None):
+    """Shared argument checks (``rows``: the kernel's most rows per CTA,
+    which bounds the GQA group, or None for no bound); returns (int8,
+    table as contiguous int32)."""
     int8 = check_kv(name, k_pool, v_pool, k_scale, v_scale)
     b, h, _, hd = q.shape
     kvh = k_pool.shape[1]
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise TypeError(f"{name} kernel takes fp32 q with a contiguous head "
                         "dim")
-    if h % kvh or hd > 128 or h // kvh > rows or k_pool.shape[3] != hd:
+    if (h % kvh or hd > 128 or k_pool.shape[3] != hd
+            or (rows is not None and h // kvh > rows)):
         raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
     if table.dim() != 2 or table.shape[0] != b:
         raise ValueError(f"{name}: table must be [B={b}, mb], got "
@@ -185,26 +190,25 @@ def paged_flash_attention_lse(q, k_pool, v_pool, table, kv_len, qpos=None, *,
 
 
 def _launch_tree(q, k_pool, v_pool, table, mask, *, scale, k_scale,
-                 v_scale):
+                 v_scale, past):
     name = "paged_tree_block_attention"
-    int8, table = _check(name, q, k_pool, v_pool, table, k_scale, v_scale,
-                         tree_block.ROWS)
+    int8, table = _check(name, q, k_pool, v_pool, table, k_scale, v_scale)
     b, h, n, hd = q.shape
     kvh, page = k_pool.shape[1], k_pool.shape[2]
     t = mask.shape[-1]
     if t > table.shape[1] * page:
         raise ValueError(f"{name}: T={t} rows exceed the table's "
                          f"{table.shape[1]} blocks of {page}")
-    o = torch.empty((b, h, n, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    past_ptrs = [None] * 3 if past is None else tree_block.check_past(past, q)
+    o, m, l = tree_block.outputs(q, past)
     fn = build.launcher("tree_block_attention", _TREE_ARGTYPES,
                         symbol=f"{name}_launch")
     err = fn(q.data_ptr(), *q.stride()[:3],
              *_pool_args(k_pool, v_pool, k_scale, v_scale),
              table.data_ptr(), table.shape[1], page, mask.data_ptr(),
-             o.data_ptr(), m.data_ptr(), l.data_ptr(),
-             b, h, kvh, n, t, hd, max(1, tree_block.ROWS // (h // kvh)),
+             *past_ptrs, o.data_ptr(), None if m is None else m.data_ptr(),
+             None if l is None else l.data_ptr(),
+             b, h, kvh, n, t, hd, tree_block.stage_keys(t, hd),
              float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(name, err)
@@ -212,18 +216,20 @@ def _launch_tree(q, k_pool, v_pool, table, mask, *, scale, k_scale,
         paged_tree_block_attention.launches_int8 += 1
     else:
         paged_tree_block_attention.launches += 1
-    return o, m, l
+    return o if past is not None else (o, m, l)
 
 
 def paged_tree_block_attention(q, k_pool, v_pool, table, tree_mask, *,
                                k_scale=None, v_scale=None,
-                               scale: Optional[float] = None):
+                               scale: Optional[float] = None, past=None):
     """q [B,H,n,hd]; k/v_pool [Nb,KV,page,hd] tree pools indexed by
     ``table`` [B,mb]; tree_mask [n,T] or [B,n,T] bool over the logical
     tree rows (T <= mb * page); k_scale/v_scale [Nb,KV,page] fp32 for int8
     pools.
 
-    Returns (o [B,H,n,hd], m [B,H,n], l [B,H,n]), all fp32.
+    Returns (o [B,H,n,hd], m [B,H,n], l [B,H,n]), all fp32; with ``past``
+    = (o, m, l) of the committed-prefix half, the merged [B,H,n,hd] output
+    (see ``tree_block.tree_block_attention``).
     """
     b, h, n, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -233,12 +239,13 @@ def paged_tree_block_attention(q, k_pool, v_pool, table, tree_mask, *,
     if q.device.type == "cpu":
         return paged_tree_block_attention_plain(
             q, k_pool, v_pool, table, mask, scale=scale, k_scale=k_scale,
-            v_scale=v_scale)
+            v_scale=v_scale, past=past)
     if q.device.type != "cuda":
         raise RuntimeError(f"no paged_tree_block_attention for {q.device}")
     # a torch.bool buffer is one byte per entry, 0 or 1: the kernel's uint8
     return _launch_tree(q, k_pool, v_pool, table, mask.contiguous(),
-                        scale=scale, k_scale=k_scale, v_scale=v_scale)
+                        scale=scale, k_scale=k_scale, v_scale=v_scale,
+                        past=past)
 
 
 paged_flash_attention_lse.launches = 0

@@ -12,6 +12,13 @@ kernel name; writes the Chrome trace to ``--trace``.  The idle share is
 taken against the plain wall time, since the profiler itself slows the
 host; the share against the profiled wall time is printed beside it.
 ``--quant int8`` profiles the int8 serving path (both bundles quantized).
+A ``families`` line sums the device time and launches per timestep of the
+port's kernels by kernel (tree, flash, dequant-matmul) and of the eager
+``combine_lse`` merge (the kernels launched under a ``combine_lse``
+profiler span, which wraps the function for the profiled window only).
+The script runs as a file too (``python src/repro_torch/launch/
+profile_serve.py`` with ``PYTHONPATH`` on another checkout's ``src``), so
+an earlier commit's code is profiled with the same counts.
 ``--mode pipedec-db`` profiles SpecPipe-DB timesteps instead: DB_SLOTS
 requests admitted at once on the local executor (``--paged`` for the
 block-paged arena, whose tree verify runs the paged kernels), so every
@@ -24,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -33,21 +41,56 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import pipedec_pair
 from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops, tree_block
 from repro_torch.models import transformer as tf
 from repro_torch.serving import LocalFusedExecutor, Request, SpecPipeDBEngine
 
 TARGET_LAYERS, STAGES, PROMPT_LEN, WARMUP, STEPS = 8, 8, 64, 8, 16
 DB_SLOTS, DB_PROMPT_LENS, MAX_LEN = 3, (64, 96, 80), 512
+# kernel name fragments of the port's kernels, by family
+FAMILIES = {"tree": "tree_block_attention_kernel",
+            "flash": "flash_attention_lse_kernel",
+            "dequant_matmul": "dequant_matmul_kernel"}
+SPAN = "combine_lse"
 
 
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def _combine_lse_span():
+    """Wrap ``combine_lse`` (where the ops and tree_block modules reach
+    it) in a profiler span while the block runs."""
+    saved = [(m, m.combine_lse) for m in (ops, tree_block)
+             if hasattr(m, "combine_lse")]
+
+    def traced(parts, _fn=saved[0][1]):
+        with record_function(SPAN):
+            return _fn(parts)
+    for m, _ in saved:
+        m.combine_lse = traced
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.combine_lse = fn
+
+
+def _under(ev):
+    """(device us, kernels) launched under a CPU event and its children."""
+    us = sum(k.duration for k in ev.kernels)
+    count = len(ev.kernels)
+    for child in ev.cpu_children:
+        cu, cn = _under(child)
+        us, count = us + cu, count + cn
+    return us, count
 
 
 def main(argv=None) -> None:
@@ -110,8 +153,8 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _combine_lse_span(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
             step()
@@ -119,7 +162,8 @@ def main(argv=None) -> None:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        # the span's device-side annotation is no kernel
+        if ev.device_type == DeviceType.CUDA and ev.name != SPAN:
             acc = by_name[ev.name]
             acc[0] += ev.time_range.elapsed_us()
             acc[1] += 1
@@ -136,6 +180,17 @@ def main(argv=None) -> None:
            "idle_share_profiled": 1.0 - busy_ms / prof_wall_ms,
            "kernel_launches_per_step": sum(v[1] for v in by_name.values())
            / STEPS})
+    fam = {}
+    for key, frag in FAMILIES.items():
+        hit = [v for name, v in by_name.items() if frag in name]
+        fam[key + "_ms_per_step"] = sum(v[0] for v in hit) / 1e3 / STEPS
+        fam[key + "_launches_per_step"] = sum(v[1] for v in hit) / STEPS
+    spans = [_under(ev) for ev in prof.events()
+             if ev.name == SPAN and ev.device_type == DeviceType.CPU]
+    fam["combine_lse_calls_per_step"] = len(spans) / STEPS
+    fam["combine_lse_ms_per_step"] = sum(u for u, _ in spans) / 1e3 / STEPS
+    fam["combine_lse_launches_per_step"] = sum(c for _, c in spans) / STEPS
+    _emit({"profile": "families", **fam})
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, count) in top:
         _emit({"profile": "kernel", "name": name[:120],
