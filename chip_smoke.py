@@ -12,7 +12,9 @@ Phases, each printed as JSON objects, one per line:
                  asynchronous copies in its SASS);
   2. kernels   - each hand-written kernel, in each of its modes (fp32 and
                  int8 K/V for the attention kernels), against its plain
-                 PyTorch version on the card at the main path's shapes: max
+                 PyTorch version on the card at the main path's shapes
+                 and at STPP's whole-tree verify (33 queries, a 41-row
+                 tree buffer with fully masked rows): max
                  errors against the stated tolerances, kernel / plain /
                  library times (CUDA events) and the least time the card
                  could take; the dequant-matmul's M-independence (every row
@@ -30,28 +32,45 @@ Phases, each printed as JSON objects, one per line:
                  tokens checked against plain autoregressive decoding, and
                  the kernels' launch counts checked against the model calls;
   4. self-draft - draft = target: every tree prediction must hit;
-  5. serve-int8 - the int8 path: the same pair and requests after
-                 ``ModelBundle.quantize()`` (int8 projections through the
-                 dequant-matmul kernel, int8 KV caches through the attention
-                 kernels' int8 mode), checked against int8 autoregressive
-                 decoding (it runs after phases 7 and 8, which need the
-                 fp32 target that quantizing frees);
-  6. self-draft-int8 - the int8 target as its own draft;
-  7. serve-db  - SpecPipe-DB (``ServingEngine(mode="pipedec-db")``, the
+  5. serve-db  - SpecPipe-DB (``ServingEngine(mode="pipedec-db")``, the
                  local executor, 3 slots) over the same pair and prompts,
                  with staggered arrivals, once on the dense arena and once
                  on the block-paged one (16-row pages), whose tree verify
                  runs the paged kernels: tokens checked against phase 3's
                  autoregressive tokens, the paged run's tokens and
                  per-request stats against the dense run's, bit for bit;
-  8. self-draft-db - the 8-layer target as its own draft on the paged
+  6. self-draft-db - the 8-layer target as its own draft on the paged
                  arena, 3 requests on 2 slots: every prediction hits, so
                  the paged commit and the batched prune remap run;
-  9. serve-int8 - the int8 path: the same pair and requests after
-                 ``ModelBundle.quantize()`` (phase 5 above);
- 10. serve-db-int8 - the int8 pair on the paged arena, checked against
-                 phase 9's int8 autoregressive tokens;
- 11. cli       - ``repro_torch.launch.serve.main`` in pp, pipedec and
+  7. stpp      - the paper's static-tree baseline (``STPPEngine``, depth
+                 4, width 8, branch 4: the target verifies 33 nodes in one
+                 pass) over the same pair and prompts: tokens checked
+                 against phase 3's autoregressive tokens, launch counts
+                 against the rounds and draft steps;
+  8. self-draft-stpp - the 8-layer target as its own STPP draft: every
+                 round but the last accepts a token;
+  9. chain     - chain speculation (``ChainSpecEngine``, 8 stages, a
+                 width-1 tree) over the same pair: lossless, one flash
+                 launch per layer per decode;
+ 10. self-draft-chain - the target as its own chain draft: no miss;
+ 11. sim       - the cost model (``core/sim.py``) priced with this card's
+                 times: a target decoder layer at width 1 and 8, the
+                 draft's tree verify, an activation copy, and the exit
+                 step (commit and prune) of an 8-stage self-draft PipeDec
+                 run, timed in a second run of it; modelled ms per token
+                 of PP, STPP and PipeDec beside the measured ones;
+ 12. serve-int8 - the int8 path: the same pair and requests after
+                 ``ModelBundle.quantize()`` (int8 projections through the
+                 dequant-matmul kernel, int8 KV caches through the attention
+                 kernels' int8 mode), checked against int8 autoregressive
+                 decoding (it runs after the fp32 phases, which need the
+                 fp32 target that quantizing frees);
+ 13. stpp-int8 - STPP over the int8 pair, checked against phase 12's int8
+                 autoregressive tokens (``dequant_matmul`` at M = 33);
+ 14. self-draft-int8 - the int8 target as its own draft;
+ 15. serve-db-int8 - the int8 pair on the paged arena, checked against
+                 phase 12's int8 autoregressive tokens;
+ 16. cli       - ``repro_torch.launch.serve.main`` in pp, pipedec and
                  pipedec-db --paged modes, fp32 and ``--quant int8``, and
                  the smoke pair on the card against the same weights on the
                  CPU, fp32 and int8.
@@ -128,8 +147,17 @@ SELF_DRAFT_NEW_TOKENS = 40
 DB_SLOTS = 3
 DB_ARRIVALS = (0, 0, 3, 6)
 DB_INT8_REQUESTS = 2
+# the chain phase's requests (of phase 3's prompts): with random weights
+# the draft misses, so each token costs about n_stages timesteps
+CHAIN_REQUESTS = 4
 DB_MAX_LEN = 512
 PAGE = 16
+# STPP (the static-tree baseline): depth, width and branch as the JAX
+# package's STPPConfig defaults; the target verifies all 1 + 4 * 8 nodes
+# in one pass against a tree buffer with width-8 slack
+STPP_DEPTH, STPP_WIDTH, STPP_BRANCH = 4, 8, 4
+STPP_NODES = 1 + STPP_DEPTH * STPP_WIDTH
+STPP_T = STPP_NODES + STPP_WIDTH
 # projections per layer per forward call, each one dequant_matmul launch
 PROJECTIONS = 7
 
@@ -286,10 +314,12 @@ def kernel_cases(torch, dev):
                                kv_len=kvl, qpos=qpos.to(torch.int32),
                                causal=causal, window=window, main=main)
 
-    def tree_case(name, b, h, kvh, n, hd, t, *, main=False, int8=False):
+    def tree_case(name, b, h, kvh, n, hd, t, *, main=False, int8=False,
+                  mask=None):
         q = rnd(b, n, h, hd).transpose(1, 2)
-        mask = torch.rand(b, n, t, generator=gen, device=dev) < 0.3
-        mask[:, -1] = False                           # an empty row
+        if mask is None:
+            mask = torch.rand(b, n, t, generator=gen, device=dev) < 0.3
+            mask[:, -1] = False                       # an empty row
         row = "tree_block_attention" + (" int8" if int8 else "")
         return name, row, dict(q=q, **kv(b, t, kvh, hd, int8), mask=mask,
                                main=main)
@@ -321,7 +351,43 @@ def kernel_cases(torch, dev):
                   main=True, int8=True),
         tree_case("tree int8/draft B=1 T=105", 1, 32, 8, 8, 64, 105,
                   int8=True),
+        # STPP's one-pass verify of the whole static tree (depth 4, width
+        # 8: 33 queries, a 41-row tree buffer; the unfilled nodes' rows
+        # are fully masked)
+        flash_case("flash/stpp-past target n=33", 1, 64, 8, STPP_NODES, 128,
+                   512, [200]),
+        flash_case("flash int8/stpp-past target n=33", 1, 64, 8, STPP_NODES,
+                   128, 512, [200], int8=True),
+        tree_case("tree/stpp target n=33 T=41", 1, 64, 8, STPP_NODES, 128,
+                  STPP_T, mask=stpp_mask(torch, dev)),
+        tree_case("tree int8/stpp target n=33 T=41", 1, 64, 8, STPP_NODES,
+                  128, STPP_T, int8=True, mask=stpp_mask(torch, dev)),
     ]
+
+
+def stpp_mask(torch, dev, seed=0):
+    """The [1, 33, 41] mask of STPP's whole-tree verify: a static tree
+    grown by the port's tree code from seeded random draft log-probs
+    (depth 4, width 8, branch 4), each node's ancestor-or-self row,
+    unfilled nodes' rows all False, padded with the width-8 slack."""
+    import torch.nn.functional as F
+    from repro_torch.core import tree as tree_lib
+    gen = torch.Generator().manual_seed(seed)
+    tree = tree_lib.tree_init(STPP_NODES, 0)
+    for _ in range(STPP_DEPTH):
+        valid = torch.arange(STPP_WIDTH) < tree.layer_size
+        logp = torch.log_softmax(torch.randn(STPP_WIDTH, 64, generator=gen),
+                                 -1)
+        lp, tok = torch.sort(logp, dim=-1, descending=True, stable=True)
+        lp = torch.where(valid[:, None], lp[:, :STPP_BRANCH],
+                         torch.tensor(tree_lib.NEG_INF))
+        tree = tree_lib.tree_expand(tree, tok[:, :STPP_BRANCH].to(
+            torch.int32), lp, STPP_WIDTH)
+    mask = F.pad(tree.mask & tree.valid()[:, None],
+                 (0, STPP_T - STPP_NODES))
+    if mask.any(1).all():
+        raise AssertionError("the STPP tree left no node unfilled")
+    return mask[None].to(dev)
 
 
 # (name, M, K, N, main): the projections of the main path.  Target: w_q
@@ -696,26 +762,34 @@ def paged_cases(torch, dev, summary):
 def merged_cases(torch, dev):
     """The tree-verify entry points (``ops.tree_attention``, and
     ``ops.paged_tree_attention`` at bucket 3) at the target's main-path
-    shapes, fp32 and int8: the tree kernel merges the committed-prefix half
-    in its epilogue.  Its output against ``combine_lse`` over the two
+    shapes, and ``ops.tree_attention`` at STPP's whole-tree verify (33
+    queries, T = 41, fully masked rows for the unfilled nodes), fp32 and
+    int8: the tree kernel merges the committed-prefix half in its
+    epilogue.  Its output against ``combine_lse`` over the two
     kernels' standalone halves (bit for bit), against the plain version
     (o tolerance); the entry point's time against the two halves plus the
     eager ``combine_lse`` (the composition before the epilogue).  Returns
     the failed cases."""
     from repro_torch.kernels import flash, ops, paged, tree_block
     from repro_torch.kernels.quant import quantize_rows
-    h, kvh, n, hd, t = 64, 8, 8, 128, PAGED_T
+    h, kvh, hd = 64, 8, 128
     bad = []
-    for paged_mode in (False, True):
+    for paged_mode, n, t, seed in ((False, 8, PAGED_T, 11),
+                                   (True, 8, PAGED_T, 11),
+                                   (False, STPP_NODES, STPP_T, 21)):
+        stpp = n == STPP_NODES
         for int8 in (False, True):
-            gen = torch.Generator().manual_seed(11 + 2 * paged_mode + int8)
+            gen = torch.Generator().manual_seed(seed + 2 * paged_mode + int8)
             b = PAGED_B if paged_mode else 1
             kv_len = (90, 200, 130)[:b] if paged_mode else (200,)
             q = torch.randn(b, n, h, hd, generator=gen).to(dev).transpose(
                 1, 2)                                  # as the model's q
-            mask = torch.rand(b, n, t, generator=gen) < 0.3
-            mask[:, :, 0] = True                       # the root
-            mask = mask.to(dev)
+            if stpp:
+                mask = stpp_mask(torch, dev, seed=int(int8))
+            else:
+                mask = torch.rand(b, n, t, generator=gen) < 0.3
+                mask[:, :, 0] = True                   # the root
+                mask = mask.to(dev)
             kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
             qpos = ((kvl.long() - 1)[:, None]
                     + torch.arange(n, device=dev) // 2).to(torch.int32)
@@ -806,8 +880,8 @@ def merged_cases(torch, dev):
             ok = err_halves <= TOL_MERGE and err_plain <= TOL_O_ABS
             row = {"phase": "kernels",
                    "case": ("paged " if paged_mode else "") + "merged "
-                   "tree verify target B=%d T=%d%s" % (b, t,
-                                                       " int8" * int8),
+                   "tree verify target B=%d T=%d%s%s" % (
+                       b, t, " n=33 (stpp)" * stpp, " int8" * int8),
                    "entry": "ops." + ("paged_" * paged_mode) +
                    "tree_attention",
                    "bit_equal_combine_lse": bit_equal,
@@ -1065,10 +1139,14 @@ def _serve(phase, state, target, draft, path, extra):
     rows, ok = [], launches_ok(launches, expect, path)
     state["prompts"] = prompts
     ar = state.setdefault("autoregressive", {})[phase] = {}
+    ar_s = 0.0
     for uid, p in enumerate(prompts):
         res = results[uid]
+        t0 = time.perf_counter()
         want = ar[uid] = generate_autoregressive(target, p, SERVE_NEW_TOKENS,
                                                  max_len=256)
+        torch.cuda.synchronize()
+        ar_s += time.perf_counter() - t0
         same, tie = _lossless(target, p, res.tokens, want)
         ok = ok and same
         st = res.stats
@@ -1079,6 +1157,13 @@ def _serve(phase, state, target, draft, path, extra):
                      "timesteps": st.timesteps, "hits": st.hits,
                      "misses": st.misses, "lossless": same,
                      "near_tie": tie})
+    new_tokens = len(prompts) * SERVE_NEW_TOKENS
+    state.setdefault("measured", {})[phase] = {
+        "pipedec_ms_per_token": 1e3 * serve_s / new_tokens,
+        "pp_ms_per_token": 1e3 * ar_s / new_tokens,
+        "tokens_per_timestep": sum(results[u].stats.commits
+                                   for u in results)
+        / sum(r["timesteps"] for r in rows)}
     emit({"phase": phase, "ok": ok, "mode": "pipedec",
           "quant": target.cfg.quant or "none",
           "target": target.cfg.name, "draft": draft.cfg.name,
@@ -1086,6 +1171,7 @@ def _serve(phase, state, target, draft, path, extra):
                       f"{pipedec_pair.TARGET.num_layers}"},
           "pipedec": {"n_stages": 8, "width": 8, "branch": 4},
           "new_tokens": SERVE_NEW_TOKENS, **extra, "serve_s": serve_s,
+          "autoregressive_s": ar_s,
           "timesteps": sum(r["timesteps"] for r in rows),
           "peak_mem_gb": peak_gb, "calls": {"target": tc, "draft": dc},
           "launches": launches, "expected_launches": expect,
@@ -1113,7 +1199,7 @@ def phase_serve(state):
 
 
 # ---------------------------------------------------------------------------
-# phase 4 (and 6): self-draft (every prediction hits)
+# phases 4 and 14: self-draft (every prediction hits)
 # ---------------------------------------------------------------------------
 def _self_draft(phase, target, path):
     import numpy as np
@@ -1144,7 +1230,7 @@ def phase_self_draft(state):
 
 
 # ---------------------------------------------------------------------------
-# phases 7, 8 and 10: SpecPipe-DB at full width, dense and paged arenas
+# phases 5, 6 and 15: SpecPipe-DB at full width, dense and paged arenas
 # ---------------------------------------------------------------------------
 STATS = ("timesteps", "commits", "hits", "misses", "entries",
          "commits_per_step")
@@ -1325,7 +1411,416 @@ def phase_serve_db_int8(state):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the int8 serving path at full width
+# phases 7-10 and 13: the paper's baselines at full width, STPP and chain
+# speculation
+# ---------------------------------------------------------------------------
+def _gen_stats(st):
+    """A GenStats as a phase line prints it: STATS (commits_per_step as
+    one string of digits) and the two rates derived from them."""
+    row = {k: getattr(st, k) for k in STATS}
+    row["commits_per_step"] = "".join(map(str, st.commits_per_step))
+    return {**row, "acceptance": st.acceptance,
+            "tokens_per_timestep": st.tokens_per_timestep}
+
+
+def _calls(target, draft):
+    tc = dict(target.calls)
+    if draft is target:
+        return {"target_as_draft": tc}
+    return {"target": tc, "draft": dict(draft.calls)}
+
+
+def _self_draft_requests(state, target):
+    """The self-draft prompt and its autoregressive tokens (computed once),
+    as (prompts, want) by uid."""
+    import numpy as np
+    from repro_torch.core.baselines import generate_autoregressive
+    prompt = np.array([3, 3, 8])
+    ar = state["autoregressive"]
+    if "self-draft" not in ar:
+        ar["self-draft"] = generate_autoregressive(target, prompt,
+                                                   SELF_DRAFT_NEW_TOKENS)
+    return [prompt], [ar["self-draft"]]
+
+
+def _stpp_phase(phase, state, target, draft, prompts, want, new_tokens,
+                path):
+    """STPP (depth 4, width 8, branch 4), ``new_tokens`` for each of
+    ``prompts``: tokens against ``want`` by uid (near-tie rule); launch
+    counts against the model calls (a round is one target tree verify of
+    the whole tree and ``depth`` draft tree verifies), with every kernel of
+    ``path`` launched.  With the target as its own draft, the target's
+    greedy child of the root is always among the draft's branch-4
+    candidates, so every round but a request's last must accept a token,
+    except at a near-tie of the target's top two logits.  Emits the phase
+    line; raises if a check fails."""
+    import torch
+    from repro_torch.core.baselines import STPPConfig, STPPEngine
+    self_draft = draft is target
+    eng = STPPEngine(target, draft, STPPConfig(STPP_DEPTH, STPP_WIDTH,
+                                               STPP_BRANCH), max_len=256)
+    zero_launches(target, draft)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [eng.generate(p, new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, expect = read_launches(target, draft)
+    tc, dc = target.calls.get("tree_verify"), draft.calls.get("tree_verify")
+    rounds = sum(st.rounds for _, st in outs)
+    steps = sum(st.draft_steps for _, st in outs)
+    verifies = (tc == rounds + steps if self_draft
+                else tc == rounds and dc == steps)
+    ok = (launches_ok(launches, expect, path) and verifies
+          and steps == STPP_DEPTH * rounds)
+    rows = []
+    for uid, (p, (out, st)) in enumerate(zip(prompts, outs)):
+        same, tie = _lossless(target, p, out, want[uid])
+        # round r's first token is out[pos], the target's choice after
+        # prompt + out[:pos]
+        empty, pos = [], 1
+        for r, acc in enumerate(st.accepted_per_round[:-1]):
+            if acc == 0:
+                empty.append({"round": r, "position": pos,
+                              "margin": _margin(target, list(p)
+                                                + out.tolist()[:pos])})
+            pos += acc + 1
+        ok = ok and same and not (
+            self_draft and any(e["margin"] >= NEAR_TIE for e in empty))
+        rows.append({"uid": uid, "prompt_len": len(p), "rounds": st.rounds,
+                     "mean_accepted": st.mean_accepted,
+                     "accepted_per_round": st.accepted_per_round,
+                     "rounds_accepting_none": empty,
+                     "lossless": same, "near_tie": tie})
+    accepted = sum(sum(st.accepted_per_round) for _, st in outs)
+    tokens = len(prompts) * new_tokens
+    state.setdefault("measured", {})[phase] = {
+        "stpp_ms_per_token": 1e3 * wall_s / tokens,
+        "mean_accepted": accepted / rounds}
+    emit({"phase": phase, "ok": ok, "mode": "stpp",
+          "quant": target.cfg.quant or "none",
+          "target": target.cfg.name,
+          "draft": "target" if self_draft else draft.cfg.name,
+          "stpp": {"depth": STPP_DEPTH, "width": STPP_WIDTH,
+                   "branch": STPP_BRANCH, "verify_queries": STPP_NODES,
+                   "tree_rows": STPP_T},
+          "new_tokens": new_tokens, "rounds": rounds,
+          "mean_accepted": accepted / rounds, "wall_s": wall_s,
+          "ms_per_round": 1e3 * wall_s / rounds,
+          "ms_per_token": 1e3 * wall_s / tokens,
+          "calls": _calls(target, draft), "launches": launches,
+          "expected_launches": expect, "requests": rows})
+    if not ok:
+        raise AssertionError(f"{phase} phase failed: see its line")
+
+
+def phase_stpp(state):
+    _stpp_phase("stpp", state, state["target"], state["draft"],
+                state["prompts"], state["autoregressive"]["serve"],
+                SERVE_NEW_TOKENS, FP32_PATH)
+
+
+def phase_self_draft_stpp(state):
+    target = state["target"]
+    _stpp_phase("self-draft-stpp", state, target, target,
+                *_self_draft_requests(state, target), SELF_DRAFT_NEW_TOKENS,
+                FP32_PATH)
+
+
+def phase_stpp_int8(state):
+    _stpp_phase("stpp-int8", state, state["target_int8"],
+                state["draft_int8"], state["prompts"],
+                state["autoregressive"]["serve-int8"], SERVE_NEW_TOKENS,
+                INT8_PATH)
+
+
+def _chain_phase(phase, state, target, draft, prompts, want, new_tokens):
+    """ChainSpecEngine(n_stages=8), ``new_tokens`` for each of
+    ``prompts``: tokens against ``want`` by uid (near-tie rule); one
+    target and one draft decode per chain entry, so one flash launch per
+    layer per decode and no tree kernel.  With the target as its own
+    draft, the draft's decode is the target's, so no chain token may miss.
+    Emits the phase line; raises if a check fails."""
+    import torch
+    from repro_torch.core.chain import ChainConfig, ChainSpecEngine
+    self_draft = draft is target
+    eng = ChainSpecEngine(target, draft, ChainConfig(n_stages=8),
+                          max_len=256)
+    zero_launches(target, draft)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [eng.generate(p, new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, expect = read_launches(target, draft)
+    tc, dc = target.calls.get("decode"), draft.calls.get("decode")
+    entries = sum(st.entries for _, st in outs)
+    decodes = tc == 2 * entries if self_draft else tc == dc == entries
+    ok = launches_ok(launches, expect, ("flash_attention_lse",)) and decodes
+    rows = []
+    for uid, (p, (out, st)) in enumerate(zip(prompts, outs)):
+        same, tie = _lossless(target, p, out, want[uid])
+        ok = ok and same and not (self_draft and st.misses)
+        rows.append({"uid": uid, "prompt_len": len(p), **_gen_stats(st),
+                     "lossless": same, "near_tie": tie})
+    timesteps = sum(st.timesteps for _, st in outs)
+    tokens = len(prompts) * new_tokens
+    state.setdefault("measured", {})[phase] = {
+        "chain_ms_per_token": 1e3 * wall_s / tokens}
+    emit({"phase": phase, "ok": ok, "n_stages": 8,
+          "target": target.cfg.name,
+          "draft": "target" if self_draft else draft.cfg.name,
+          "new_tokens": new_tokens, "timesteps": timesteps,
+          "tokens_per_timestep": sum(st.commits for _, st in outs)
+          / timesteps,
+          "wall_s": wall_s, "ms_per_timestep": 1e3 * wall_s / timesteps,
+          "ms_per_token": 1e3 * wall_s / tokens,
+          "calls": _calls(target, draft), "launches": launches,
+          "expected_launches": expect, "requests": rows})
+    if not ok:
+        raise AssertionError(f"{phase} phase failed: see its line")
+
+
+def phase_chain(state):
+    _chain_phase("chain", state, state["target"], state["draft"],
+                 state["prompts"][:CHAIN_REQUESTS],
+                 state["autoregressive"]["serve"], SERVE_NEW_TOKENS)
+
+
+def phase_self_draft_chain(state):
+    target = state["target"]
+    _chain_phase("self-draft-chain", state, target, target,
+                 *_self_draft_requests(state, target), SELF_DRAFT_NEW_TOKENS)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the cost model (core/sim.py) priced with this card's times
+# ---------------------------------------------------------------------------
+def _eager_ms(fn, warmup: int = 3, batches: int = 21, per_batch: int = 5):
+    """Median CUDA-event time (ms) of one call of ``fn`` called from Python
+    as the model calls it, after ``warmup`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def batch():
+        for _ in range(per_batch):
+            fn()
+    return _event_ms(batch, batches, per_batch)
+
+
+def stage_calls(target, draft):
+    """The calls the ``sim`` phase times, by name: one target decoder layer
+    at M = 1 (a decode at position 200) and at a width-8 tree layer (a
+    tree verify over 200 committed rows and a 105-row tree buffer), each
+    called as ``transformer`` calls it (norms, attention through the
+    kernels, MLP; no LM head); the draft's whole width-8 tree verify; a
+    device-to-device copy of one width-8 fp32 activation (the stage
+    hand-off).  Returns (calls, the activation's bytes)."""
+    import torch
+    from repro_torch.core.pipedec import PipeDecConfig
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import mlp
+
+    cfg, dev = target.cfg, target.device
+    w, past = 8, 200
+    t_rows = PipeDecConfig(n_stages=8, width=w, branch=4).tree_buffer_capacity
+    write_at = 1 + 3 * w                     # the tree's fourth layer
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layer = target.model.layers[0]
+    cache = attn.init_kv_cache(cfg, 1, DB_MAX_LEN, dev)
+    tcache = attn.init_kv_cache(cfg, 1, t_rows, dev)
+    x1 = torch.randn(1, 1, cfg.d_model, generator=gen, device=dev)
+    xw = torch.randn(1, w, cfg.d_model, generator=gen, device=dev)
+    position = torch.tensor([past], device=dev)
+    kv_len = (position + 1).to(torch.int32)
+    positions = torch.full((1, w), past + 3, device=dev)
+    mlen = torch.tensor([past], dtype=torch.int32, device=dev)
+    mask = torch.rand(1, w, t_rows, generator=gen, device=dev) < 0.3
+    mask[:, :, 0] = True                     # the root
+
+    def block(x, y):
+        x = x + y
+        return x + mlp(layer.ffn, layer.norm2(x))
+
+    def layer_one():
+        y, _ = attn.attn_decode(layer.mixer, cfg, layer.norm1(x1), position,
+                                cache, [past], kv_len,
+                                window=cfg.sliding_window)
+        return block(x1, y)
+
+    def layer_width():
+        y, _ = attn.attn_tree_verify(
+            layer.mixer, cfg, layer.norm1(xw), positions, model_cache=cache,
+            model_len=mlen, tree_cache=tcache, tree_write_index=[write_at],
+            tree_mask=mask, window=cfg.sliding_window)
+        return block(xw, y)
+
+    d_cache = draft.init_cache(1, DB_MAX_LEN)
+    d_tree = draft.init_tree_caches(1, t_rows)
+    tokens = torch.randint(0, cfg.vocab_size, (1, w), generator=gen,
+                           device=dev)
+
+    def draft_verify():
+        return draft.tree_verify(tokens, positions, mask, d_cache, past,
+                                 d_tree, write_at)
+    act = torch.randn(1, w, cfg.d_model, generator=gen, device=dev)
+    act_to = torch.empty_like(act)
+    return ({"layer_one": layer_one, "layer_width": layer_width,
+             "draft_tree_verify": draft_verify,
+             "activation_copy": lambda: act_to.copy_(act)},
+            act.numel() * act.element_size())
+
+
+def _device_busy_ms(fn, calls: int = 5) -> float:
+    """Device time (ms) of the kernels one call of ``fn`` runs: the sum of
+    their durations in a torch.profiler window of ``calls`` calls, over
+    ``calls``.  Beside an eager time it says how far the host holds the
+    card back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def _timed_exits(engine):
+    """Time each of ``engine``'s exit steps (commit and prune, the
+    timestep's sync): the card is drained before the step, so the time is
+    the step's own, host and copies, until the card is done with it.
+    Returns the list that the times (ms) go to."""
+    import torch
+    times, apply = [], engine.exit_apply
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+    engine.exit_apply = timed
+    return times
+
+
+def _self_draft_pipedec(state, target):
+    """PipeDec at the model's 8 stages (width 8, branch 4) with the target
+    as its own draft, on the self-draft prompt: one timed run, then a
+    second run of the same request whose exit steps are timed alone
+    (``_timed_exits``; the draining would slow the timed run).  Returns
+    (ms per token, tokens per timestep, exit-step times in ms); raises
+    unless every prediction hits and the tokens are lossless."""
+    import torch
+    from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
+    (prompt,), (want,) = _self_draft_requests(state, target)
+    pcfg = PipeDecConfig(n_stages=8, width=8, branch=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = PipeDecEngine(target, target, pcfg).generate(
+        prompt, SELF_DRAFT_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    timed = PipeDecEngine(target, target, pcfg)
+    exit_ms = _timed_exits(timed)
+    out2, st2 = timed.generate(prompt, SELF_DRAFT_NEW_TOKENS)
+    same, _ = _lossless(target, prompt, out, want)
+    if not (same and st.acceptance == 1.0 and (out2 == out).all()
+            and st2.timesteps == st.timesteps):
+        raise AssertionError("sim: the 8-stage self-draft PipeDec runs must "
+                             "hit every prediction, be lossless and agree")
+    return (1e3 * wall_s / SELF_DRAFT_NEW_TOKENS, st.tokens_per_timestep,
+            exit_ms)
+
+
+def phase_sim(state):
+    """Stage times measured on the card (``stage_calls``, CUDA events,
+    medians after warm-up; the kernels' device busy time beside), from
+    which ``sim.stage_hardware_from_roofline`` models LLaMA-70B's 80
+    layers over 8 stages of 10, with ``t_sync`` the median exit step of an
+    8-stage self-draft PipeDec run.  The modelled ms per token of PP, STPP
+    and PipeDec are printed beside the single-card wall ms per token of
+    the matching runs (8 target layers on one card): for PipeDec, phase
+    serve (random draft) and the 8-stage self-draft run timed here, so
+    that every input of the model comes from the 8 stages it prices."""
+    import dataclasses
+    import math
+    from repro_torch.core import sim
+
+    target, draft = state["target"], state["draft"]
+    measured = state["measured"]
+    cfg = target.cfg
+    sd_ms, sd_tpt, exit_ms = _self_draft_pipedec(state, target)
+    measured["self-draft-pipedec-8"] = {"pipedec_ms_per_token": sd_ms,
+                                        "tokens_per_timestep": sd_tpt}
+    calls, act_bytes = stage_calls(target, draft)
+    times = {name + "_ms": _eager_ms(fn) for name, fn in calls.items()}
+    times["exit_step_ms"] = statistics.median(exit_ms)
+    # the copy is a memcpy, not a kernel: the profiler window shows no
+    # device time for it
+    busy = {name + "_ms": _device_busy_ms(fn) for name, fn in calls.items()
+            if name != "activation_copy"}
+    hw = sim.stage_hardware_from_roofline(
+        n_stages=8, layer_time_one=times["layer_one_ms"] / 1e3,
+        layer_time_width=times["layer_width_ms"] / 1e3,
+        layers_per_stage=10, bytes_per_activation=act_bytes,
+        link_bw=act_bytes / (times["activation_copy_ms"] / 1e3),
+        t_draft=times["draft_tree_verify_ms"] / 1e3,
+        t_sync=times["exit_step_ms"] / 1e3)
+    pp_ms = 1e3 * sim.pp_latency_per_token(hw)
+    modelled, beside = {}, {}
+    for regime, dec, stpp, chain in (
+            ("self-draft", "self-draft-pipedec-8", "self-draft-stpp",
+             "self-draft-chain"),
+            ("random-draft", "serve", "stpp", "chain")):
+        tpt = measured[dec]["tokens_per_timestep"]
+        acc = measured[stpp]["mean_accepted"]
+        modelled[regime] = {
+            "pp": pp_ms,
+            "stpp": 1e3 * sim.stpp_latency_per_token(hw, STPP_DEPTH, acc),
+            "pipedec": 1e3 * sim.pipedec_latency_per_token(hw, tpt),
+            "inputs": {"tokens_per_timestep": tpt, "mean_accepted": acc}}
+        beside[regime] = {
+            "pp": measured["serve"]["pp_ms_per_token"],
+            "stpp": measured[stpp]["stpp_ms_per_token"],
+            "pipedec": measured[dec]["pipedec_ms_per_token"],
+            "chain": measured[chain]["chain_ms_per_token"]}
+    values = [v for m in modelled.values() for k, v in m.items()
+              if k != "inputs"] + list(times.values()) + list(busy.values())
+    ok = all(math.isfinite(v) and v > 0 for v in values)
+    emit({"phase": "sim", "ok": ok,
+          "model": "core/sim.py priced with this card's layer times: "
+                   "LLaMA-70B's 80 layers over 8 stages of 10, hand-off at "
+                   "the card's device-to-device copy rate (a model, not a "
+                   "measurement of a pipeline)",
+          "stage_times": times, "device_busy": busy,
+          "exit_step_ms": {"median": times["exit_step_ms"],
+                           "min": min(exit_ms), "max": max(exit_ms),
+                           "n": len(exit_ms)},
+          "activation_bytes": act_bytes,
+          "hardware": dataclasses.asdict(hw),
+          "modelled_ms_per_token": modelled,
+          "measured_ms_per_token_one_card": beside,
+          "measured_is": f"wall ms per new token on one card "
+                         f"({cfg.num_layers} target layers), all at 8 "
+                         f"stages: PP, phase serve's autoregressive "
+                         f"decoding; PipeDec, phase serve and the "
+                         f"8-stage self-draft run timed here; STPP and "
+                         f"chain, their phases"})
+    if not ok:
+        raise AssertionError("sim: every stage time, device busy time and "
+                             "modelled value must be finite and positive")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the int8 serving path at full width
 # ---------------------------------------------------------------------------
 def phase_serve_int8(state):
     """Quantize phase 3's fp32 target on the card and free its fp32
@@ -1360,7 +1855,7 @@ def phase_self_draft_int8(state):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the CLI, and the card against the CPU on the same weights
+# phase 16: the CLI, and the card against the CPU on the same weights
 # ---------------------------------------------------------------------------
 CLI_RUNS = (  # (mode flags, --quant, the kernels that run on that path)
     (("--mode", "pp"), "none", ("flash_attention_lse",)),  # no tree in pp
@@ -1531,7 +2026,13 @@ def main() -> int:
                         ("self-draft", phase_self_draft),
                         ("serve-db", phase_serve_db),
                         ("self-draft-db", phase_self_draft_db),
+                        ("stpp", phase_stpp),
+                        ("self-draft-stpp", phase_self_draft_stpp),
+                        ("chain", phase_chain),
+                        ("self-draft-chain", phase_self_draft_chain),
+                        ("sim", phase_sim),
                         ("serve-int8", phase_serve_int8),
+                        ("stpp-int8", phase_stpp_int8),
                         ("self-draft-int8", phase_self_draft_int8),
                         ("serve-db-int8", phase_serve_db_int8),
                         ("cli", phase_cli)):

@@ -1,10 +1,14 @@
 """Serving front door: a request queue and three execution modes.
 
-  * ``mode="pp"``         - batched greedy autoregressive decode, the
-                            paper's PP baseline: requests are bucketed by
-                            prompt length and decoded in lockstep batches
-                            of up to ``max_batch`` rows, each batch running
-                            to its longest ``max_new_tokens``.
+  * ``mode="pp"``         - batched autoregressive decode, the paper's PP
+                            baseline: requests are bucketed by prompt
+                            length and decoded in lockstep batches of up
+                            to ``max_batch`` rows, each batch running to
+                            its longest ``max_new_tokens``.  The first
+                            token is the prefill's argmax; each decode
+                            step samples per row from ``sampling`` when
+                            its temperature is above 0 (``generator``
+                            draws), else takes the argmax.
   * ``mode="pipedec"``    - latency-oriented: the pipeline works on one
                             request at a time with the dynamic prediction
                             tree (the paper's single-request system).
@@ -18,6 +22,8 @@
                             ``LocalFusedExecutor(paged=True)`` the paged
                             one); the run's ``DBStats`` stay in
                             ``db_stats``.
+
+Every mode stops a request at ``eos_token``, the eos included.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
-from repro_torch.core.speculative import ModelBundle, SamplingParams
+from repro_torch.core.speculative import (ModelBundle, SamplingParams,
+                                          select_token)
 
 MODES = ("pp", "pipedec", "pipedec-db")
 
@@ -71,7 +78,15 @@ class ServingEngine:
     def __init__(self, target: ModelBundle,
                  draft: Optional[ModelBundle] = None, *, mode: str = "pp",
                  max_batch: int = 8, max_len: int = 512,
-                 pipedec: Optional[PipeDecConfig] = None, executor=None):
+                 pipedec: Optional[PipeDecConfig] = None,
+                 sampling: SamplingParams = SamplingParams(),
+                 eos_token: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 executor=None):
+        """``sampling`` and ``generator`` (on the target's device) drive
+        pp mode's decode steps; None draws each batch from a generator
+        seeded with 0.  The speculative modes sample per request
+        (``Request.sampling``, else ``pipedec.sampling``)."""
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if mode != "pp" and draft is None:
@@ -81,6 +96,8 @@ class ServingEngine:
         self.target, self.draft, self.mode = target, draft, mode
         self.max_batch, self.max_len = max_batch, max_len
         self.pipedec_cfg = pipedec or PipeDecConfig()
+        self.sampling, self.eos_token = sampling, eos_token
+        self.generator = generator
         self.executor = executor
         self.db_stats = None      # DBStats after a mode="pipedec-db" run
         self.queue: List[Request] = []
@@ -100,23 +117,37 @@ class ServingEngine:
         toks = torch.argmax(logits, -1).tolist()
         outs = [[t] for t in toks]
         model_len = s
+        gen = self.generator
+        if gen is None and self.sampling.temperature > 0:
+            gen = torch.Generator(device=tgt.device)
+            gen.manual_seed(0)
         for _ in range(new):
             logits, cache = tgt.decode(toks, cache, model_len)
             model_len += 1
-            toks = torch.argmax(logits, -1).tolist()
+            if self.sampling.temperature > 0:
+                toks = [select_token(row, self.sampling, gen)
+                        for row in logits]
+            else:
+                toks = torch.argmax(logits, -1).tolist()
             for out, t in zip(outs, toks):
                 out.append(t)
         _sync(tgt.device)
         dt = time.perf_counter() - t0
-        return [Result(r.uid, np.asarray(o[: r.max_new_tokens + 1]), dt)
+        return [Result(r.uid, self._cut(o[: r.max_new_tokens + 1]), dt)
                 for r, o in zip(batch, outs)]
+
+    def _cut(self, tokens: List[int]) -> np.ndarray:
+        """Tokens up to the first ``eos_token``, the eos included."""
+        if self.eos_token is not None and self.eos_token in tokens:
+            tokens = tokens[: tokens.index(self.eos_token) + 1]
+        return np.asarray(tokens)
 
     def _run_pipedec_one(self, req: Request) -> Result:
         t0 = time.perf_counter()
         eng = PipeDecEngine(self.target, self.draft, self.pipedec_cfg,
                             max_len=self.max_len)
         out, stats = eng.generate(req.prompt, req.max_new_tokens,
-                                  sampling=req.sampling)
+                                  eos=self.eos_token, sampling=req.sampling)
         _sync(self.target.device)
         return Result(req.uid, out, time.perf_counter() - t0, stats)
 
@@ -135,6 +166,7 @@ class ServingEngine:
             eng = SpecPipeDBEngine(self.target, self.draft, self.pipedec_cfg,
                                    max_len=self.max_len,
                                    max_slots=self.max_batch,
+                                   eos_token=self.eos_token,
                                    executor=self.executor)
             for req in queue:
                 eng.submit(req)

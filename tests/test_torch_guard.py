@@ -26,7 +26,8 @@ bad = sorted(m for m in sys.modules
 print(len([m for m in sys.modules if m.startswith("repro_torch")]))
 assert not bad, bad
 db = ["models.paging", "kernels.paged", "core.dynbatch",
-      "serving.scheduler", "serving.executor", "serving.dynbatch"]
+      "serving.scheduler", "serving.executor", "serving.dynbatch",
+      "core.baselines", "core.chain", "core.sim"]
 missing = [m for m in db if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """

@@ -1,6 +1,7 @@
 """The port's serving front door and CLI on the CPU: ``pp``, ``pipedec``
 and ``pipedec-db`` modes against plain autoregressive decoding and
-against the JAX package's ``ServingEngine`` on the same weights."""
+against the JAX package's ``ServingEngine`` on the same weights, eos
+truncation and pp sampling included."""
 import dataclasses
 
 import jax
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.pipedec import PipeDecConfig as JaxPipeDecConfig
 from repro.core.speculative import ModelBundle as JaxBundle
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro.serving import Request as JaxRequest
@@ -17,7 +19,7 @@ from repro_torch.checkpoint import from_jax_params
 from repro_torch.configs import pipedec_pair
 from repro_torch.core.baselines import generate_autoregressive
 from repro_torch.core.pipedec import PipeDecConfig
-from repro_torch.core.speculative import ModelBundle
+from repro_torch.core.speculative import ModelBundle, SamplingParams
 from repro_torch.launch import serve
 from repro_torch.serving import LocalFusedExecutor, Request, ServingEngine
 
@@ -136,3 +138,64 @@ def test_cli_pipedec_db_paged_on_cpu(quant, capsys):
         prompt = rng.integers(0, engine.target.cfg.vocab_size, size=8)
         want, _ = single.generate(prompt, 5)
         np.testing.assert_array_equal(results[uid].tokens, want)
+
+
+@pytest.fixture(scope="module")
+def tiny_pair():
+    """{"target"|"draft": (port, jax)} on the same numpy weights."""
+    from test_torch_baselines import DRAFT, TARGET, _pair
+    return {"target": _pair(TARGET, 0), "draft": _pair(DRAFT, 9)}
+
+
+@pytest.mark.parametrize("mode", ["pp", "pipedec", "pipedec-db"])
+def test_eos_truncation_matches_jax_serving_engine(tiny_pair, mode):
+    """eos set to a token that request 0's greedy output holds: every
+    request's output stops at its first eos, eos included, as the JAX
+    package's ServingEngine cuts it, in all three modes."""
+    (t, jt), (d, jd) = tiny_pair["target"], tiny_pair["draft"]
+    reqs = _requests([5, 5, 7], [10, 12, 9], seed=4)
+    for r in reqs:
+        r.prompt = r.prompt % t.cfg.vocab_size
+    full = generate_autoregressive(t, reqs[0].prompt, reqs[0].max_new_tokens)
+    eos = int(full[5])
+    pcfg = PipeDecConfig(n_stages=2, width=4, branch=2)
+    port = ServingEngine(t, d, mode=mode, max_batch=2, pipedec=pcfg,
+                         eos_token=eos)
+    ref = JaxServingEngine(jt, jd, mode=mode, max_batch=2,
+                           pipedec=JaxPipeDecConfig(2, 4, 2), eos_token=eos)
+    for r in reqs:
+        port.submit(r)
+        ref.submit(JaxRequest(r.uid, r.prompt.astype(np.int32),
+                              r.max_new_tokens))
+    got, want = port.run(), ref.run()
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for uid in want:
+        np.testing.assert_array_equal(got[uid].tokens, want[uid].tokens)
+    cut = list(full).index(eos) + 1
+    np.testing.assert_array_equal(got[0].tokens, full[:cut])
+    assert cut < len(full)
+
+
+def test_pp_sampling_replays_from_seeded_generators(tiny_pair):
+    """pp mode with temperature > 0 samples every decode step per row from
+    ``generator``: two generators with the same seed give the same tokens;
+    the first token stays the prefill's argmax."""
+    t, _ = tiny_pair["target"]
+    sp = SamplingParams(temperature=0.9, top_k=50, top_p=0.95)
+    outs = []
+    for _ in range(2):
+        eng = ServingEngine(t, mode="pp", max_batch=3, sampling=sp,
+                            generator=torch.Generator().manual_seed(11))
+        for r in _requests([4, 4, 4], [8, 8, 8], seed=5):
+            r.prompt = r.prompt % t.cfg.vocab_size
+            eng.submit(r)
+        outs.append(eng.run())
+    greedy = [generate_autoregressive(t, r.prompt % t.cfg.vocab_size, 8)
+              for r in _requests([4, 4, 4], [8, 8, 8], seed=5)]
+    for uid in range(3):
+        a, b = outs[0][uid].tokens, outs[1][uid].tokens
+        np.testing.assert_array_equal(a, b)
+        assert len(a) == 9 and ((a >= 0) & (a < t.cfg.vocab_size)).all()
+        assert a[0] == greedy[uid][0]
+    assert any(not np.array_equal(outs[0][u].tokens, greedy[u])
+               for u in range(3))
