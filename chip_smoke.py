@@ -75,6 +75,30 @@ Phases, each printed as JSON objects, one per line:
                  the smoke pair on the card against the same weights on the
                  CPU, fp32 and int8.
 
+Between phases 2 and 3, with no serving model on the card:
+
+  train      - the training path (``launch.steps.make_train_step``:
+               ``loss_fn`` under autograd, attention in plain PyTorch,
+               AdamW) at published widths: 20 steps of the draft
+               (LLaMA-3.2-1B whole) with remat off and 20 with remat on,
+               5 of one LLaMA-3.1-70B layer, at the JAX CLI's defaults on
+               the trainer's byte corpus, and 3 draft steps at S 2048
+               (batch 1; chunked attention, 8 CE chunks) with remat off
+               and 3 with remat on; ms per step (CUDA events),
+               tokens per second, peak memory, the card's idle share and
+               top operations (torch.profiler) and the share of the fp32
+               peak; checks: finite losses, the draft's loss falls, remat
+               on equals off at step 0, step 0 equals a float64 copy of
+               the draft on the card, no kernel of the port launches;
+  train-pair - the smoke pair trained here on one corpus by
+               ``launch.train.train`` (the benchmarks' recipe), saved,
+               reloaded through ``launch.serve.build_bundle(ckpt=)`` (bit
+               for bit) and served by ``ServingEngine`` in pipedec and pp
+               modes on held-out prompts: lossless against
+               autoregressive decoding, launch counts against the model
+               calls, acceptance with a trained draft; and the training
+               CLI for 3 steps.
+
 Phase 2 also holds each paged kernel (the paged modes of the two attention
 kernels) against its plain version and, bit for bit, against the dense
 kernel on the view gathered through the block table.  Every serving
@@ -160,6 +184,30 @@ STPP_NODES = 1 + STPP_DEPTH * STPP_WIDTH
 STPP_T = STPP_NODES + STPP_WIDTH
 # projections per layer per forward call, each one dequant_matmul launch
 PROJECTIONS = 7
+# phase train: the JAX CLI's defaults (batch 8, seq 128, lr 3e-4) on the
+# trainer's corpus (seed 0, 2^18 bytes); the draft's steps (run with remat
+# off and on), the 1-layer target's; the steps before the timed median;
+# the draft's steps run to profile (the first outside the window)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR, TRAIN_CORPUS = 8, 128, 3e-4, 1 << 18
+TRAIN_STEPS, TRAIN_TARGET_STEPS, TRAIN_WARMUP, TRAIN_PROFILE = 20, 5, 2, 3
+# and a few draft steps at S 2048 (batch 1, remat off and on), where the
+# training attention is the chunked form (a checkpoint per 1024-row query
+# chunk) and the loss sums 8 CE chunks of 256 rows
+TRAIN_LONG_BATCH, TRAIN_LONG_SEQ, TRAIN_LONG_STEPS = 1, 2048, 3
+# H100 SXM fp32 outside the tensor cores (NVIDIA's data sheet, dense): the
+# training matmuls are IEEE fp32 sgemm, TF32 off
+FP32_FLOP_PER_S = 67e12
+# remat on against off: the same products on the same inputs (the
+# recomputed forward repeats the first), so equal bits are expected; fp32
+# against a float64 copy of the draft on the same batch: a loss and a
+# grad norm summed over 1024 tokens and 1.24 B weights in fp32
+TOL_REMAT = 1e-6
+TOL_F64 = 1e-5
+# phase train-pair: the benchmarks' recipe (benchmarks/common.py), their
+# held-out prompts (6 x 32 bytes of corpus seed 3) and 32 new tokens each
+PAIR_STEPS, PAIR_BATCH, PAIR_SEQ, PAIR_LR, PAIR_CORPUS = (400, 8, 64, 2e-3,
+                                                          1 << 17)
+PAIR_PROMPTS, PAIR_PROMPT_LEN, PAIR_NEW_TOKENS, PAIR_MAX_LEN = 6, 32, 32, 256
 
 
 def emit(obj) -> None:
@@ -1079,6 +1127,357 @@ PAGED_INT8_PATH = ("flash_attention_lse int8",
 
 
 # ---------------------------------------------------------------------------
+# phases train and train-pair: the training path, then a pair trained here
+# ---------------------------------------------------------------------------
+def _byte_batches(data, batch: int, seq: int, n: int):
+    """The first ``n`` batches ``launch.train.train`` takes at seed 0 from
+    the corpus bytes ``data``."""
+    from repro_torch.data import ByteCorpus, DataConfig, batch_iterator
+    corpus = ByteCorpus(data, DataConfig(seq_len=seq, batch_size=batch,
+                                         seed=0))
+    it = batch_iterator(corpus, epochs=1000)
+    return [{"tokens": t, "labels": y} for t, y in
+            (next(it) for _ in range(n))]
+
+
+def _f64_check(model, batch):
+    """Loss and global grad norm of ``batch`` for a float64 copy of
+    ``model`` on the card (the reference of the fp32 step)."""
+    import copy
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import trainable
+    ref = copy.deepcopy(model).double()
+    params = trainable(ref)
+    loss = tf.loss_fn(ref, batch["tokens"], batch["labels"])
+    loss.backward()
+    gnorm = torch.sqrt(sum(torch.sum(p.grad.square()) for p in params))
+    out = (loss.item(), gnorm.item())
+    del ref, params, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_flop(cfg, batch: int, seq: int) -> float:
+    """FLOPs of the products of one training step, the backward counted
+    as twice the forward: per token, the weights of the projections, the
+    MLP and the unembedding (the untied input embedding is a lookup, not
+    a product), and the two attention products over the whole S x S
+    score matrix that plain attention computes.  Remat's recomputed
+    forward is not counted."""
+    hd = cfg.resolved_head_dim
+    mlp = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
+    layer = (cfg.d_model * hd * 2 * (cfg.num_heads + cfg.num_kv_heads)
+             + mlp * cfg.d_model * cfg.d_ff)
+    weights = cfg.num_layers * layer + cfg.d_model * cfg.vocab_size
+    attend = cfg.num_layers * 2 * seq * cfg.num_heads * hd
+    return 6.0 * batch * seq * (weights + attend)
+
+
+def _train_run(model, batches, steps: int, *, remat: bool,
+               profile_calls: int):
+    """``steps`` AdamW steps of ``launch.train.train``'s recipe (lr
+    TRAIN_LR, ``max(10, steps // 20)`` warm-up steps) on ``batches``
+    through ``make_train_step``, each timed with CUDA events; then
+    ``profile_calls`` more steps, all but the first under torch.profiler.
+    Returns the run's numbers; no kernel of the port may launch."""
+    import statistics
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.layers import trainable
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    params = trainable(model)
+    opt = adamw_init(params)
+    step = make_train_step(model.cfg, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(10, steps // 20), total_steps=steps),
+        remat=remat)
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for batch in batches[:steps]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        opt, metrics = step(model, opt, batch)
+        end.record()
+        timed.append((start, end, metrics))
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = [a.elapsed_time(b) for a, b, _ in timed]
+    extra = iter(batches[steps:])
+    holder = [opt]
+
+    def one_step():
+        holder[0], _ = step(model, holder[0], next(extra))
+    busy_ms, top = _device_profile(one_step, profile_calls - 1, top=8)
+    launches, _ = read_launches()
+    n_params = sum(p.numel() for p in params)
+    b, s = batches[0]["tokens"].shape
+    flop = _train_flop(model.cfg, b, s)
+    step_ms = statistics.median(ms[TRAIN_WARMUP:])
+    return {"remat": remat, "steps": steps, "batch": b, "seq": s,
+            "loss": [float(m["loss"]) for *_, m in timed],
+            "grad_norm": [float(m["grad_norm"]) for *_, m in timed],
+            "lr_schedule": [float(m["lr"]) for *_, m in timed],
+            "ms_per_step": step_ms, "step_ms": ms,
+            "tokens_per_s": b * s / step_ms * 1e3,
+            "peak_mem_gb": peak_gb, "params": n_params,
+            "tflop_per_step": flop / 1e12,
+            "fp32_peak_share": flop / (step_ms / 1e3) / FP32_FLOP_PER_S,
+            "busy_ms_per_step": busy_ms,
+            "idle_share": 1 - busy_ms / step_ms,
+            "profiled_steps": profile_calls - 1, "top_device_ops": top,
+            "kernel_launches": sum(launches.values()),
+            "on_card": all(p.is_cuda for p in params)}
+
+
+def _train_line(name, cfg, run, extra, checks):
+    from repro_torch.configs import pipedec_pair
+    full = {"llama3.1-70b": pipedec_pair.TARGET,
+            "llama3.2-1b": pipedec_pair.DRAFT}[cfg.name]
+    emit({"phase": "train", "model": name, "config": cfg.name,
+          "layers": f"{cfg.num_layers} of {full.num_layers}",
+          "lr": TRAIN_LR,
+          "fp32_peak_flop_per_s": FP32_FLOP_PER_S, **run, **extra,
+          "checks": checks, "ok": all(checks.values())})
+    return all(checks.values())
+
+
+def _draft_runs(batches, steps: int, profile_calls: int):
+    """The draft (LLaMA-3.2-1B whole, seed 0) trained on ``batches`` with
+    remat off and on, and the float64 loss and grad norm of the first
+    batch.  Returns ({remat: run}, (loss, grad norm))."""
+    import gc
+    import torch
+    from repro_torch.configs import pipedec_pair
+    from repro_torch.models import transformer as tf
+    runs = {}
+    for remat in (False, True):
+        model = tf.init_model(pipedec_pair.DRAFT, seed=0, device="cuda")
+        if not remat:      # the float64 reference of step 0's batch
+            f64 = _f64_check(model, batches[0])
+        runs[remat] = _train_run(model, batches, steps, remat=remat,
+                                 profile_calls=profile_calls)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs, f64
+
+
+def _draft_checks(runs, f64, common, *, falls: bool):
+    """Each draft run's line: ``common`` checks, finite values, the loss
+    falling (when ``falls``), step 0 of remat on against off and of remat
+    off against the float64 copy.  Returns whether all held."""
+    import math
+    from repro_torch.configs import pipedec_pair
+    off = runs[False]
+    ok = True
+    for remat, run in runs.items():
+        losses = run["loss"]
+        checks = {"finite": all(map(math.isfinite, losses + run["grad_norm"])),
+                  "no_kernel_launch": run["kernel_launches"] == 0,
+                  "on_card": run["on_card"], **common}
+        if falls:
+            checks["loss_falls"] = sum(losses[-5:]) / 5 < losses[0]
+        if remat:
+            err = [abs(run[k][0] - off[k][0]) / abs(off[k][0])
+                   for k in ("loss", "grad_norm")]
+            checks["remat_equal"] = max(err) <= TOL_REMAT
+            extra = {"remat_rel_err": {"loss": err[0], "grad_norm": err[1],
+                                       "tol": TOL_REMAT}}
+        else:
+            err = [abs(off[k][0] - ref) / abs(ref)
+                   for k, ref in zip(("loss", "grad_norm"), f64)]
+            checks["f64_equal"] = max(err) <= TOL_F64
+            extra = {"f64": {"loss": f64[0], "grad_norm": f64[1],
+                             "rel_err": err, "tol": TOL_F64}}
+        ok = _train_line("draft", pipedec_pair.DRAFT, run, extra,
+                         checks) and ok
+    return ok
+
+
+def phase_train(state):
+    """The training path at published widths: the draft (LLaMA-3.2-1B
+    whole) with remat off and on at S 128 and at S 2048, and one
+    LLaMA-3.1-70B layer."""
+    import dataclasses
+    import gc
+    import math
+    import torch
+    from repro_torch.configs import pipedec_pair
+    from repro_torch.data import synthetic_corpus
+    from repro_torch.models import transformer as tf
+
+    data = synthetic_corpus(TRAIN_CORPUS, seed=0)
+    batches = _byte_batches(data, TRAIN_BATCH, TRAIN_SEQ,
+                            TRAIN_STEPS + TRAIN_PROFILE)
+    long_batches = _byte_batches(data, TRAIN_LONG_BATCH, TRAIN_LONG_SEQ,
+                                 TRAIN_LONG_STEPS + 2)
+    common = {"tf32_off": not torch.backends.cuda.matmul.allow_tf32,
+              "byte_tokens": all(b["tokens"].max() < 260
+                                 for b in batches + long_batches)}
+    ok = _draft_checks(*_draft_runs(batches, TRAIN_STEPS, TRAIN_PROFILE),
+                       common, falls=True)
+    ok = _draft_checks(*_draft_runs(long_batches, TRAIN_LONG_STEPS, 2),
+                       common, falls=False) and ok
+
+    tcfg = dataclasses.replace(pipedec_pair.TARGET, num_layers=1)
+    model = tf.init_model(tcfg, seed=0, device="cuda")
+    run = _train_run(model, batches, TRAIN_TARGET_STEPS, remat=True,
+                     profile_calls=2)
+    checks = {"finite": all(map(math.isfinite, run["loss"]
+                                + run["grad_norm"])),
+              "no_kernel_launch": run["kernel_launches"] == 0,
+              "on_card": run["on_card"],
+              "tf32_off": common["tf32_off"]}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = _train_line("target", tcfg, run, {}, checks) and ok
+    if not ok:
+        raise AssertionError("train phase failed: see its lines")
+
+
+def _eval_prompts():
+    """Held-out prompts: the first PAIR_PROMPT_LEN bytes of examples of
+    another seed's corpus (``benchmarks/common.py`` ``eval_prompts``)."""
+    import numpy as np
+    from repro_torch.data import ByteCorpus, DataConfig, synthetic_corpus
+    corpus = ByteCorpus(synthetic_corpus(1 << 14, seed=3),
+                        DataConfig(seq_len=PAIR_PROMPT_LEN, batch_size=1))
+    return [corpus.example(i)[0].astype(np.int64)
+            for i in range(PAIR_PROMPTS)]
+
+
+def _pair_serve(mode, target, draft, prompts, path):
+    """Serve ``prompts`` with ``ServingEngine(mode)``, one request at a
+    time (pp: ``max_batch`` 1), PAIR_NEW_TOKENS each; launch counts
+    checked against the model calls.  Returns (results, wall s, launch
+    line, launches ok)."""
+    import torch
+    from repro_torch.core.pipedec import PipeDecConfig
+    from repro_torch.serving import Request, ServingEngine
+    engine = ServingEngine(target, draft, mode=mode, max_batch=1,
+                           max_len=PAIR_MAX_LEN,
+                           pipedec=PipeDecConfig(n_stages=4, width=8,
+                                                 branch=4))
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid, p, PAIR_NEW_TOKENS))
+    zero_launches(target, draft)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, expect = read_launches(target, draft)
+    good = launches_ok(launches, expect, path)
+    return results, wall_s, {"launches": launches,
+                             "expected_launches": expect}, good
+
+
+def phase_train_pair(state):
+    """The smoke pair trained on the card on one corpus (the benchmarks'
+    recipe), saved, reloaded and served losslessly by PipeDec and PP."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as cfg_reg
+    from repro_torch.core.baselines import generate_autoregressive
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer as tf
+
+    ckdir = ROOT / "build" / "train_pair"
+    trained, losses, train_s = {}, {}, {}
+    for arch in ("pipedec-target", "pipedec-draft"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trained[arch], losses[arch] = train.train(
+                cfg_reg.get_config(arch, smoke=True), steps=PAIR_STEPS,
+                batch=PAIR_BATCH, seq=PAIR_SEQ, lr=PAIR_LR, seed=0,
+                log_every=0, corpus_bytes=PAIR_CORPUS,
+                ckpt=str(ckdir / f"{arch}.npz"), device="cuda")
+        torch.cuda.synchronize()
+        train_s[arch] = time.perf_counter() - t0
+    prompts = _eval_prompts()
+    batch = np.stack(prompts)
+    bundles, reload_equal = {}, {}
+    for arch, model in trained.items():
+        bundles[arch] = serve.build_bundle(
+            arch, seed=0, ckpt=str(ckdir / f"{arch}.npz"), device="cuda")
+        with torch.no_grad():
+            reload_equal[arch] = torch.equal(
+                tf.forward(bundles[arch].model, batch),
+                tf.forward(model, batch))
+    del trained
+    target, draft = bundles["pipedec-target"], bundles["pipedec-draft"]
+
+    res_pd, wall_pd, launch_pd, ok_pd = _pair_serve(
+        "pipedec", target, draft, prompts, FP32_PATH)
+    res_pp, wall_pp, launch_pp, ok_pp = _pair_serve(
+        "pp", target, None, prompts, ("flash_attention_lse",))
+    rows, lossless = [], True
+    for uid, p in enumerate(prompts):
+        want = generate_autoregressive(target, p, PAIR_NEW_TOKENS,
+                                       max_len=PAIR_MAX_LEN)
+        same_pd, tie_pd = _lossless(target, p, res_pd[uid].tokens, want)
+        same_pp, tie_pp = _lossless(target, p, res_pp[uid].tokens, want)
+        lossless = lossless and same_pd and same_pp
+        st = res_pd[uid].stats
+        rows.append({"uid": uid, "pipedec_lossless": same_pd,
+                     "pp_lossless": same_pp, "near_tie": tie_pd or tie_pp,
+                     "hits": st.hits, "misses": st.misses,
+                     "commits": st.commits, "timesteps": st.timesteps,
+                     "acceptance": st.acceptance,
+                     "tokens_per_timestep": st.tokens_per_timestep})
+    hits = sum(r["hits"] for r in rows)
+    misses = sum(r["misses"] for r in rows)
+    new_tokens = PAIR_PROMPTS * PAIR_NEW_TOKENS
+
+    buf = io.StringIO()
+    cli_path = str(ckdir / "cli.npz")
+    with contextlib.redirect_stdout(buf):
+        _, cli_losses = train.main(["--arch", "pipedec-draft", "--smoke",
+                                    "--steps", "3", "--batch", "2",
+                                    "--seq", "32", "--ckpt", cli_path])
+    cli_ok = (len(cli_losses) == 3 and all(np.isfinite(cli_losses))
+              and serve.build_bundle("pipedec-draft", seed=0, ckpt=cli_path,
+                                     device="cuda").model.device.type
+              == "cuda")
+
+    final = {a: float(np.mean(v[-10:])) for a, v in losses.items()}
+    checks = {"losses_finite": all(np.isfinite(v).all()
+                                   for v in losses.values()),
+              "losses_fall": all(v[-1] < v[0] for v in losses.values()),
+              "reload_bit_equal": all(reload_equal.values()),
+              "lossless": lossless, "pipedec_launches": ok_pd,
+              "pp_launches": ok_pp, "cli": cli_ok}
+    emit({"phase": "train-pair", "ok": all(checks.values()),
+          "checks": checks,
+          "recipe": {"steps": PAIR_STEPS, "batch": PAIR_BATCH,
+                     "seq": PAIR_SEQ, "lr": PAIR_LR,
+                     "corpus_bytes": PAIR_CORPUS, "seed": 0},
+          "first_loss": {a: v[0] for a, v in losses.items()},
+          "final_loss_mean_last_10": final,
+          "last_loss": {a: v[-1] for a, v in losses.items()},
+          "train_s": train_s,
+          "pipedec_config": {"n_stages": 4, "width": 8, "branch": 4},
+          "prompts": PAIR_PROMPTS, "prompt_len": PAIR_PROMPT_LEN,
+          "new_tokens": PAIR_NEW_TOKENS,
+          "acceptance": hits / max(hits + misses, 1), "hits": hits,
+          "misses": misses,
+          "tokens_per_timestep": sum(r["commits"] for r in rows)
+          / sum(r["timesteps"] for r in rows),
+          "pipedec_ms_per_token": 1e3 * wall_pd / new_tokens,
+          "pp_ms_per_token": 1e3 * wall_pp / new_tokens,
+          "launches": {"pipedec": launch_pd, "pp": launch_pp},
+          "cli_losses": cli_losses, "cli_printed":
+          buf.getvalue().strip().splitlines(), "requests": rows})
+    if not all(checks.values()):
+        raise AssertionError("train-pair phase failed: see its line")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: full-width serving, the main path
 # ---------------------------------------------------------------------------
 def _margin(bundle, prefix):
@@ -1673,11 +2072,14 @@ def stage_calls(target, draft):
             act.numel() * act.element_size())
 
 
-def _device_busy_ms(fn, calls: int = 5) -> float:
-    """Device time (ms) of the kernels one call of ``fn`` runs: the sum of
-    their durations in a torch.profiler window of ``calls`` calls, over
-    ``calls``.  Beside an eager time it says how far the host holds the
-    card back."""
+def _device_profile(fn, calls: int = 5, top: int = 0):
+    """(busy ms, top device operations) of one call of ``fn``: the sum of
+    the durations of the kernels and copies it runs on the card in a
+    torch.profiler window of ``calls`` calls (after one call outside it),
+    over ``calls``; and the ``top`` largest of them by name, as [name, ms
+    per call, launches per call].  Beside an eager time the busy time says
+    how far the host holds the card back."""
+    import collections
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1688,8 +2090,14 @@ def _device_busy_ms(fn, calls: int = 5) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.time_range.elapsed_us() for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / calls
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name][0] += ev.time_range.elapsed_us() / 1e3 / calls
+            by_name[ev.name][1] += 1 / calls
+    busy = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return busy, [[name[:96], ms, n] for name, (ms, n) in ranked]
 
 
 def _timed_exits(engine):
@@ -1765,8 +2173,8 @@ def phase_sim(state):
     times["exit_step_ms"] = statistics.median(exit_ms)
     # the copy is a memcpy, not a kernel: the profiler window shows no
     # device time for it
-    busy = {name + "_ms": _device_busy_ms(fn) for name, fn in calls.items()
-            if name != "activation_copy"}
+    busy = {name + "_ms": _device_profile(fn)[0]
+            for name, fn in calls.items() if name != "activation_copy"}
     hw = sim.stage_hardware_from_roofline(
         n_stages=8, layer_time_one=times["layer_one_ms"] / 1e3,
         layer_time_width=times["layer_width_ms"] / 1e3,
@@ -2022,7 +2430,9 @@ def main() -> int:
             emit({"phase": "card", "source": name, **row})
 
     state, failed = {"launches": {}}, []
-    for name, phase in (("kernels", phase_kernels), ("serve", phase_serve),
+    for name, phase in (("kernels", phase_kernels), ("train", phase_train),
+                        ("train-pair", phase_train_pair),
+                        ("serve", phase_serve),
                         ("self-draft", phase_self_draft),
                         ("serve-db", phase_serve_db),
                         ("self-draft-db", phase_self_draft_db),

@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights into the port's modules.
+"""Carry the JAX package's weights into the port's modules, and back.
 
 The source is the JAX parameter pytree as numpy arrays: from
 ``jax.device_get(init_model(...))`` or from a ``save_pytree`` ``.npz`` read
@@ -17,6 +17,9 @@ A quantized pytree (the JAX package's ``ModelBundle.quantize()``) holds
 each projection as ``{"q8": int8, "scale": f32}``, both with the leading
 layer axis; it fills a model of the same config with ``quant="int8"``,
 whose projections are ``QuantWeight``s, value for value.
+
+``to_jax_params`` is the reverse: the same pytree, as numpy arrays, from
+a port model (what the trainer saves as ``{"params": ...}``).
 """
 from __future__ import annotations
 
@@ -96,3 +99,29 @@ def from_jax_params(cfg: ModelConfig, params: Mapping, *,
     """A port model on ``device`` holding the JAX package's weights (give
     ``cfg.quant="int8"`` for a quantized pytree)."""
     return load_jax_params(Transformer(cfg, resolve_device(device)), params)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+@torch.no_grad()
+def to_jax_params(model: Transformer) -> dict:
+    """The JAX dense-model parameter pytree of an fp32 ``model`` as numpy
+    arrays: ``stack`` a one-element list whose leaves carry a leading
+    layer axis, no ``lm_head`` when the embeddings are tied.
+    ``load_jax_params`` of the result gives the same model back, value for
+    value."""
+    if model.cfg.quant:
+        raise ValueError("to_jax_params takes an fp32 model (the trainer's); "
+                         f"{model.cfg.name} is {model.cfg.quant}")
+    out = {"embed": {"table": _numpy(model.embed.table)},
+           "final_norm": {"scale": _numpy(model.final_norm.scale)}}
+    if model.lm_head is not None:
+        out["lm_head"] = {"table": _numpy(model.lm_head.table)}
+    unit = {part: {name: np.stack([_numpy(getattr(getattr(layer, part), name))
+                                   for layer in model.layers])
+                   for name in names}
+            for part, names in _LAYER_KEYS.items()}
+    out["stack"] = [unit]
+    return out

@@ -1,4 +1,5 @@
-"""Read the JAX package's flat-key ``.npz`` checkpoints (numpy only).
+"""The JAX package's flat-key ``.npz`` checkpoints: a file either package
+writes, the other reads.
 
 Keys encode the tree path as ``d:<name>`` (dict), ``l:<i>`` (list),
 ``t:<i>`` (tuple) or ``none:`` parts joined by ``||``; the structure is
@@ -6,11 +7,42 @@ rebuilt from the keys alone, so no pickle and no schema file.
 """
 from __future__ import annotations
 
+import os
 from typing import Any
 
 import numpy as np
+import torch
 
 _SEP = "||"
+
+
+def _flatten(tree: Any, prefix: str = "") -> dict:
+    """Flat ``{key: array}`` of a tree of dicts, lists, tuples, None and
+    arrays (torch tensors are copied to host numpy arrays)."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{_SEP}d:{k}" if prefix
+                                else f"d:{k}"))
+    elif isinstance(tree, (list, tuple)):
+        tag = "l" if isinstance(tree, list) else "t"
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{_SEP}{tag}:{i}" if prefix
+                                else f"{tag}:{i}"))
+    elif tree is None:
+        out[prefix + _SEP + "none:" if prefix else "none:"] = np.zeros(0)
+    elif isinstance(tree, torch.Tensor):
+        out[prefix] = tree.detach().cpu().numpy()
+    else:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def save_pytree(path: str, tree: Any) -> None:
+    """Write ``tree`` to ``path`` as a flat-key ``.npz``."""
+    flat = _flatten(tree)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
 
 
 def _assign(root, parts, value):

@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from repro_torch import configs as cfg_reg
+from repro_torch.checkpoint import from_jax_params, load_pytree
 from repro_torch.core.pipedec import PipeDecConfig
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import DeviceLike, resolve_device
@@ -31,13 +32,17 @@ from repro_torch.serving import (LocalFusedExecutor, Request, Result,
                                  ServingEngine)
 
 
-def build_bundle(arch: str, *, seed: int,
+def build_bundle(arch: str, *, seed: int, ckpt: str = "",
                  device: DeviceLike = None) -> ModelBundle:
-    """Init the smoke-size config of one arch with seeded random weights
-    on ``device`` and wrap it as a ``ModelBundle``."""
+    """The smoke-size config of one arch on ``device``, with seeded random
+    weights or the ``{"params": ...}`` of checkpoint ``ckpt`` (written by
+    either package's trainer), wrapped as a ``ModelBundle``."""
     cfg = cfg_reg.get_config(arch, smoke=True)
-    return ModelBundle(tf.init_model(cfg, seed=seed,
-                                     device=resolve_device(device)))
+    dev = resolve_device(device)
+    if ckpt:
+        return ModelBundle(from_jax_params(cfg, load_pytree(ckpt)["params"],
+                                           device=dev))
+    return ModelBundle(tf.init_model(cfg, seed=seed, device=dev))
 
 
 def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:

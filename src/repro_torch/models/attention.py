@@ -14,7 +14,11 @@ All three attention call sites go through the port's kernels
 ``flash_attention_lse``, tree verification through ``flash_attention_lse``
 over the committed prefix plus ``tree_block_attention`` over the tree
 buffer, merged by ``combine_lse``.  The kernels read the caches in place
-through transposed views.
+through transposed views.  The kernels have no backward, so training
+attends in plain PyTorch under autograd (``attn_train``), as the JAX
+package's training forward attends in plain ``jnp``: ``gqa_attend`` under
+a causal mask, or ``chunked_causal_attend`` from
+``CHUNKED_ATTN_THRESHOLD`` keys on.
 
 A cache leaf may also be block-paged (``models.paging.Paged``: a row pool
 behind a per-slot block table, the SpecPipe-DB paged arena).  Then decode
@@ -36,13 +40,14 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (QuantWeight, apply_rope, dense_init_,
-                                       weight)
+                                       weight, wide)
 
 
 class Attention(nn.Module):
@@ -91,20 +96,62 @@ def project_qkv(p: Attention, cfg: ModelConfig, x, positions):
 def gqa_attend(q, k, v, mask, *, scale: Optional[float] = None):
     """Reference GQA over explicit masks, with the JAX ``gqa_attend`` fill
     (the fp32 minimum): q [B,Sq,H,hd], k/v [B,Sk,KV,hd], mask
-    [B|1, 1, Sq, Sk] bool.  The port's model runs the kernels instead; this
-    is the semantics they are held to."""
+    [B|1, 1, Sq, Sk] bool.  Serving runs the kernels instead (this is the
+    semantics they are held to); training attends through it."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     rep = h // kvh
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(b, sq, kvh, rep, hd)
-    logits = torch.einsum("bqgrk,bsgk->bgrqs", qg, k).float() * scale
+    logits = wide(torch.einsum("bqgrk,bsgk->bgrqs", qg, k)) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask[:, :, None],
                                     torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bgrqs,bsgk->bqgrk", probs, v)
     return out.reshape(b, sq, h, v.shape[-1])
+
+
+# full-sequence training attention switches to the chunked (memory-
+# efficient) form at this sequence length: logits temporaries become
+# [B, H, CHUNK_Q, S] instead of [B, H, S, S]
+CHUNKED_ATTN_THRESHOLD = 2048
+CHUNK_Q = 1024
+
+
+def causal_mask(sq: int, sk: int, q_offset, window: int = 0, device=None):
+    """[1, 1, Sq, Sk] bool: query i (absolute ``q_offset + i``) attends key
+    j if j <= i, and within ``window`` if window > 0."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
+def _causal_chunk(qc, k, v, start: int, window: int, scale: float):
+    """Causal attention of the queries at rows [start, start + len(qc))."""
+    mask = causal_mask(qc.shape[1], k.shape[1], start, window, qc.device)
+    return gqa_attend(qc, k, v, mask, scale=scale)
+
+
+def chunked_causal_attend(q, k, v, *, window: int = 0,
+                          scale: Optional[float] = None):
+    """Causal attention over query chunks of ``CHUNK_Q`` rows, each
+    recomputed in backward (``torch.utils.checkpoint``): the math of
+    ``gqa_attend`` under ``causal_mask``, with O(S * CHUNK_Q) temporaries.
+    q [B,S,H,hd], k/v [B,S,KV,hd]."""
+    b, s, h, hd = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    cq = min(CHUNK_Q, s)
+    pad = (-s) % cq
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    outs = [checkpoint(_causal_chunk, q[:, c:c + cq], k, v, c, window,
+                       scale, use_reentrant=False)
+            for c in range(0, s + pad, cq)]
+    return torch.cat(outs, dim=1)[:, :s]
 
 
 # --------------------------------------------------------------------------
@@ -224,6 +271,21 @@ def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
                                 _heads_first(v), positions, window=window,
                                 **kw)
     return _out(p, _heads_first(out)), cache
+
+
+def attn_train(p: Attention, cfg: ModelConfig, x, positions, *,
+               window: int = 0):
+    """Causal attention over a whole sequence for training, under autograd
+    and without the kernels: ``gqa_attend`` under ``causal_mask`` below
+    ``CHUNKED_ATTN_THRESHOLD`` keys, ``chunked_causal_attend`` from there
+    on.  positions [B,S].  Returns out [B,S,d]."""
+    q, k, v = project_qkv(p, cfg, x, positions)
+    s = x.shape[1]
+    if s >= CHUNKED_ATTN_THRESHOLD:
+        out = chunked_causal_attend(q, k, v, window=window)
+    else:
+        out = gqa_attend(q, k, v, causal_mask(s, s, 0, window, x.device))
+    return _out(p, out)
 
 
 def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,

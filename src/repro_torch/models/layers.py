@@ -9,6 +9,11 @@ not draw the same values.
 A projection of an int8 model is a ``QuantWeight``: int8 values in the
 fp32 weight's layout and one fp32 scale per output channel (the JAX
 package's ``{"q8", "scale"}`` dict).  ``matmul`` applies either kind.
+
+Weights take no gradient until ``trainable`` switches an fp32 model's
+parameters on for training; an int8 model refuses.  The fp32 functions
+here compute in fp32, or in float64 for a ``model.double()`` copy (the
+training check's reference), never narrower than their input.
 """
 from __future__ import annotations
 
@@ -22,9 +27,28 @@ from repro_torch.kernels import ops
 
 
 def param(shape, device) -> nn.Parameter:
-    """An uninitialised fp32 weight that takes no gradient."""
+    """An uninitialised fp32 weight that takes no gradient (until
+    ``trainable``)."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
                         requires_grad=False)
+
+
+def trainable(module: nn.Module) -> list:
+    """Switch every weight of ``module`` to take a gradient and return
+    them, in ``parameters()`` order.  An int8 module (``QuantWeight``s)
+    has no trainable form and raises."""
+    if any(isinstance(m, QuantWeight) for m in module.modules()):
+        raise ValueError("an int8 (QuantWeight) model cannot be trained: "
+                         "train the fp32 model and quantize it afterwards")
+    params = list(module.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    return params
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or as it is when it is float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 class QuantWeight(nn.Module):
@@ -83,10 +107,11 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(scale, x, eps: float = 1e-6):
-    """x * rsqrt(mean(x^2) + eps) * scale, in fp32."""
-    xf = x.float()
+    """x * rsqrt(mean(x^2) + eps) * scale, in fp32 (float64 for a float64
+    ``x``)."""
+    xf = wide(x)
     var = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * scale.to(xf.dtype)).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -101,11 +126,12 @@ def apply_rope(x, positions, theta: float):
     """x [..., S, heads, hd]; positions broadcastable to [..., S].  Rotates
     by half-split (first half against second half), not interleaved."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)
-    angles = positions[..., None].float() * freqs          # [..., S, hd/2]
+    xf = wide(x)
+    freqs = rope_frequencies(hd, theta, x.device).to(xf.dtype)
+    angles = positions[..., None].to(xf.dtype) * freqs     # [..., S, hd/2]
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -13,7 +13,10 @@ plain functions, as in the JAX package:
   * ``commit_tree_node`` - move one verified tree node's K/V into the
                            model cache (two-level cache sync, paper 3.4.3).
 
-and, for the slot-stacked arenas of SpecPipe-DB, the batched cache-row
+and, for training (under autograd, attending in plain PyTorch: the
+kernels have no backward), ``forward`` (logits), ``loss_fn`` and its
+streaming cross-entropy ``chunked_ce``; and, for the slot-stacked arenas
+of SpecPipe-DB, the batched cache-row
 helpers ``slice_cache_rows`` / ``update_cache_rows`` /
 ``where_cache_rows``, ``commit_tree_nodes`` (the per-row two-level sync)
 and ``remap_tree_cache_rows`` (the per-row post-prune compaction).
@@ -35,13 +38,14 @@ from typing import List
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, RMSNorm, embed, embed_init_,
-                                       mlp, param, unembed)
+                                       mlp, param, unembed, wide)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -175,19 +179,91 @@ def _tokens(model: Transformer, tokens):
     return torch.as_tensor(tokens, device=model.device).long()
 
 
-def _run_layers(model: Transformer, x, attend):
-    """Residual blocks; ``attend(i, mixer, h)`` is layer i's attention."""
+def _block(i: int, layer: DecoderLayer, x, attend):
+    """Residual block ``i``; ``attend(i, mixer, h)`` is its attention."""
+    x = x + attend(i, layer.mixer, layer.norm1(x))
+    return x + mlp(layer.ffn, layer.norm2(x))
+
+
+def _run_layers(model: Transformer, x, attend, *, remat: bool = False):
+    """The residual blocks in order; with ``remat`` each block keeps only
+    its input for backward and recomputes the rest there
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
     for i, layer in enumerate(model.layers):
-        h = layer.norm1(x)
-        x = x + attend(i, layer.mixer, h)
-        x = x + mlp(layer.ffn, layer.norm2(x))
+        if remat:
+            x = checkpoint(_block, i, layer, x, attend, use_reentrant=False)
+        else:
+            x = _block(i, layer, x, attend)
     return x
 
 
+def _head(model: Transformer) -> torch.Tensor:
+    """The LM head's table [V, d] (the embedding's when tied)."""
+    return (model.embed if model.lm_head is None else model.lm_head).table
+
+
 def _logits(model: Transformer, x):
-    x = model.final_norm(x)
-    head = model.embed if model.lm_head is None else model.lm_head
-    return unembed(head.table, x)
+    return unembed(_head(model), model.final_norm(x))
+
+
+def _hidden(model: Transformer, tokens, *, remat: bool = False):
+    """Training forward up to the final norm: hidden states [B,S,d] under
+    autograd, attention in plain PyTorch (``attn.attn_train``)."""
+    cfg = model.cfg
+    tokens = _tokens(model, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=model.device).expand(b, s)
+
+    def attend(i, mixer, h):
+        return attn.attn_train(mixer, cfg, h, positions,
+                               window=cfg.sliding_window)
+
+    x = _run_layers(model, embed(model.embed.table, tokens), attend,
+                    remat=remat)
+    return model.final_norm(x)
+
+
+def forward(model: Transformer, tokens, *, remat: bool = False):
+    """Training forward: logits [B,S,V] of every position (dense models
+    only: no prefix embeddings, encoder or MoE aux loss)."""
+    return unembed(_head(model), _hidden(model, tokens, remat=remat))
+
+
+def _ce_sum(table, hc, yc):
+    """Summed next-token NLL of one chunk; labels < 0 count 0."""
+    logp = torch.log_softmax(wide(hc @ table.T), dim=-1)
+    nll = -torch.gather(logp, -1, yc.clamp_min(0)[..., None])[..., 0]
+    return torch.where(yc >= 0, nll, 0.0).sum()
+
+
+def chunked_ce(table, hidden, labels, *, chunk: int = 256):
+    """Streaming cross-entropy that never holds [B,S,V] logits: the
+    sequence is cut into chunks of ``chunk`` positions (the tail padded
+    with label -1), each chunk's logits recomputed in backward
+    (``torch.utils.checkpoint``), so the peak is one [B, chunk, V] fp32
+    block.  The summed NLL of the valid labels over ``B * S`` (not over the
+    count of valid labels), as in the JAX package."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=wide(hidden).dtype, device=hidden.device)
+    for c in range(0, s + pad, chunk):
+        total = total + checkpoint(_ce_sum, table, hidden[:, c:c + chunk],
+                                   labels[:, c:c + chunk],
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def loss_fn(model: Transformer, tokens, labels, *, remat: bool = False,
+            ce_chunk: int = 256):
+    """Mean next-token cross-entropy of ``labels`` [B,S] (-1: ignored)
+    given ``tokens`` [B,S], under autograd."""
+    hidden = _hidden(model, tokens, remat=remat)
+    return chunked_ce(_head(model), hidden, _tokens(model, labels),
+                      chunk=ce_chunk)
 
 
 @torch.no_grad()

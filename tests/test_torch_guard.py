@@ -27,7 +27,8 @@ print(len([m for m in sys.modules if m.startswith("repro_torch")]))
 assert not bad, bad
 db = ["models.paging", "kernels.paged", "core.dynbatch",
       "serving.scheduler", "serving.executor", "serving.dynbatch",
-      "core.baselines", "core.chain", "core.sim"]
+      "core.baselines", "core.chain", "core.sim", "data.pipeline",
+      "optim.adamw", "launch.steps", "launch.train"]
 missing = [m for m in db if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """
