@@ -42,6 +42,26 @@ Phases, each printed as JSON objects, one per line:
   6. self-draft-db - the 8-layer target as its own draft on the paged
                  arena, 3 requests on 2 slots: every prediction hits, so
                  the paged commit and the batched prune remap run;
+ 6a. serve-db-sharded - phase 5's requests on the 8-stage pipeline ring
+                 (``ShardedPipelineExecutor``: one flush of the ring per
+                 timestep, the target's 8 layers one per stage), dense and
+                 paged: tokens against phase 3's autoregressive tokens,
+                 tokens, per-request stats and the logits of every
+                 committed token against phase 5's run bit for bit, one
+                 flush per timestep with entries; wall ms and launches
+                 per timestep beside phase 5's;
+ 6b. serve-db-overlap - the same on the overlapped ring
+                 (``OverlappedShardedExecutor``: one tick per timestep,
+                 deferred exit logits, commits and prunes riding the ring,
+                 prompts streaming through its 64-token prefill lane):
+                 tokens against phase 3's (near-tie rule) and phase 5's,
+                 one tick per timestep, no separate prefill, the
+                 ctrl-active share of the ticks and the largest logit
+                 difference against phase 5;
+ 6c. self-draft-db-overlap - the 8-layer target as its own draft on the
+                 overlapped 8-stage ring, paged, 3 requests on 2 slots:
+                 every prediction hits, so commits and prunes propagate
+                 through every stage, and each retire kills;
   7. stpp      - the paper's static-tree baseline (``STPPEngine``, depth
                  4, width 8, branch 4: the target verifies 33 nodes in one
                  pass) over the same pair and prompts: tokens checked
@@ -72,6 +92,7 @@ Phases, each printed as JSON objects, one per line:
                  phase 12's int8 autoregressive tokens;
  16. cli       - ``repro_torch.launch.serve.main`` in pp, pipedec and
                  pipedec-db --paged modes, fp32 and ``--quant int8``, and
+                 pipedec-db --executor sharded [--overlap] in fp32, and
                  the smoke pair on the card against the same weights on the
                  CPU, fp32 and int8.
 
@@ -176,6 +197,8 @@ DB_INT8_REQUESTS = 2
 CHAIN_REQUESTS = 4
 DB_MAX_LEN = 512
 PAGE = 16
+# self-draft-db-overlap: 3 requests on 2 slots (self-draft-db's prompts)
+SELF_DRAFT_DB_PROMPTS = ([3, 3, 8], [5, 1, 9, 2], [7, 7])
 # STPP (the static-tree baseline): depth, width and branch as the JAX
 # package's STPPConfig defaults; the target verifies all 1 + 4 * 8 nodes
 # in one pass against a tree buffer with width-8 slack
@@ -1635,6 +1658,28 @@ STATS = ("timesteps", "commits", "hits", "misses", "entries",
          "commits_per_step")
 
 
+@contextlib.contextmanager
+def exit_logits():
+    """Record, per request, the target logits each token after the first
+    is selected from at exit (a copy of the root's row): {id(GenStats):
+    [logits [V], ...]}.  A resolved future of the overlapped ring is
+    recorded as its value."""
+    from repro_torch.core.pipedec import PipeDecEngine
+    seen, real = {}, PipeDecEngine.exit_apply
+
+    def exit_apply(self, st, fl, root_row, **kw):
+        logits = fl.logits
+        if hasattr(logits, "resolve"):
+            logits = logits.resolve()
+        seen.setdefault(id(st.stats), []).append(logits[root_row].clone())
+        return real(self, st, fl, root_row, **kw)
+    PipeDecEngine.exit_apply = exit_apply
+    try:
+        yield seen
+    finally:
+        PipeDecEngine.exit_apply = real
+
+
 def _db_run(target, draft, requests, *, paged, slots, pcfg):
     """One SpecPipe-DB run through ServingEngine(mode="pipedec-db") on the
     local executor; launch counts zeroed just before and read just after.
@@ -1653,10 +1698,13 @@ def _db_run(target, draft, requests, *, paged, slots, pcfg):
     zero_launches(target, draft)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results = engine.run()
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    with exit_logits() as seen:
+        t0 = time.perf_counter()
+        results = engine.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    for r in results.values():
+        r.exit_logits = seen.get(id(r.stats), [])
     launches, expect = read_launches(target, draft, paged=paged)
     return (engine, results, ex, serve_s,
             torch.cuda.max_memory_allocated() / 1e9, launches, expect)
@@ -1699,6 +1747,11 @@ def _db_phase(phase, state, target, draft, requests, want, path, slots,
                          "timesteps": r.stats.timesteps, "hits": r.stats.hits,
                          "lossless": same, "near_tie": tie})
         runs[paged] = res
+        state.setdefault("db_runs", {})[phase, paged] = {
+            "results": res, "timesteps": st.timesteps,
+            "ms_per_timestep": 1e3 * serve_s / max(st.timesteps, 1),
+            "launches_per_timestep": sum(launches.values())
+            / max(st.timesteps, 1)}
         if paged and not paged_only:
             same_run = all(
                 (runs[True][u].tokens == runs[False][u].tokens).all()
@@ -1807,6 +1860,218 @@ def phase_serve_db_int8(state):
               state["autoregressive"]["serve-int8"], PAGED_INT8_PATH,
               DB_INT8_REQUESTS, PipeDecConfig(n_stages=8, width=8, branch=4),
               paged_only=True)
+
+
+# ---------------------------------------------------------------------------
+# phases serve-db-sharded, serve-db-overlap and self-draft-db-overlap:
+# SpecPipe-DB on the 8-stage ring (launch/pipeline.py)
+# ---------------------------------------------------------------------------
+def read_ring_launches(ex, *bundles, paged=False):
+    """``read_launches`` plus the stage applications of executor ``ex``
+    (None: no executor): each layer the ring runs in tree mode launches
+    the dense flash and tree kernels once (the ring's caches are dense, or
+    densified around it); its chunk prefill attends in plain PyTorch and
+    launches nothing."""
+    launches, expect = read_launches(*bundles, paged=paged)
+    layers = ex.calls["stage_layers"] if ex is not None else 0
+    for row in ("flash_attention_lse", "tree_block_attention"):
+        expect[row] += layers
+    return launches, expect
+
+
+# the ring's path: the target's stage applications on the dense kernels;
+# the draft's verify on the paged kernels over a paged arena
+RING_PATHS = {False: FP32_PATH,
+              True: FP32_PATH + ("paged_flash_attention_lse",
+                                 "paged_tree_block_attention")}
+
+
+def _ring_run(kind, target, draft, requests, *, paged, slots, pcfg):
+    """One SpecPipe-DB run on the stage ring through
+    ServingEngine(mode="pipedec-db"): ``ShardedPipelineExecutor`` (flush)
+    or ``OverlappedShardedExecutor`` (its prefill lane: 64-token chunks, so
+    the 64-128-token prompts stream in one or two); launch
+    counts zeroed just before and read just after, exit logits recorded.
+    Returns (engine, results, executor, serve_s, peak_gb, launches,
+    expect)."""
+    import torch
+    from repro_torch.serving import (OverlappedShardedExecutor, Request,
+                                     ServingEngine, ShardedPipelineExecutor)
+    kw = dict(slots=slots, max_len=DB_MAX_LEN,
+              tree_capacity=pcfg.tree_buffer_capacity,
+              capacity=pcfg.capacity, n_stages=pcfg.n_stages, paged=paged,
+              page=PAGE)
+    if kind == "overlap":
+        ex = OverlappedShardedExecutor(target, draft, **kw)
+    else:
+        ex = ShardedPipelineExecutor(target, draft, **kw)
+    engine = ServingEngine(target, draft, mode="pipedec-db", max_batch=slots,
+                           max_len=DB_MAX_LEN, pipedec=pcfg, executor=ex)
+    for uid, prompt, new, arrival in requests:
+        engine.submit(Request(uid, prompt, new, arrival_t=arrival))
+    zero_launches(target, draft)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with exit_logits() as seen:
+        t0 = time.perf_counter()
+        results = engine.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    for r in results.values():
+        r.exit_logits = seen.get(id(r.stats), [])
+    launches, expect = read_ring_launches(ex, target, draft, paged=paged)
+    return (engine, results, ex, serve_s,
+            torch.cuda.max_memory_allocated() / 1e9, launches, expect)
+
+
+def _logit_diff(got, want):
+    """Largest |difference| between two requests' exit logits (None when
+    their counts differ: the token streams parted)."""
+    if len(got) != len(want):
+        return None
+    return max((float((a - b).abs().max()) for a, b in zip(got, want)),
+               default=0.0)
+
+
+def _ring_phase(phase, kind, state):
+    """The serve-db requests (phase 3's prompts, 3 slots, arrivals 0, 0,
+    3, 6, 32 new tokens) on the 8-stage ring, dense and paged arenas:
+    tokens against phase 3's autoregressive tokens (near-tie rule);
+    tokens and per-request GenStats against the serve-db run on the same
+    arena kind (the flush also selects every token from bit-equal
+    logits; the overlapped ring may part from it only at a near-tie);
+    launch counts against the model calls and the ring's stage
+    applications; one flush per timestep with entries, or one tick per
+    timestep and no separate prefill.  Prints wall ms and launches per
+    timestep beside the serve-db run's.  Raises if a check fails."""
+    from repro_torch.configs import pipedec_pair
+    from repro_torch.core.pipedec import PipeDecConfig
+    target, draft = state["target"], state["draft"]
+    pcfg = PipeDecConfig(n_stages=8, width=8, branch=4)
+    requests = _db_requests(state, SERVE_REQUESTS)
+    want = state["autoregressive"]["serve"]
+    ok = True
+    for paged in (False, True):
+        local = state["db_runs"]["serve-db", paged]
+        engine, res, ex, serve_s, peak_gb, launches, expect = _ring_run(
+            kind, target, draft, requests, paged=paged, slots=DB_SLOTS,
+            pcfg=pcfg)
+        st = engine.db_stats
+        good = launches_ok(launches, expect, RING_PATHS[paged])
+        if kind == "overlap":
+            good = (good and ex.calls["pipeline_tick"] == st.timesteps
+                    and st.tick_dispatches == [1] * st.timesteps
+                    and ex.calls["drain_tick"] == 0
+                    and st.separate_prefill_dispatches == 0
+                    and not target.calls["prefill"]
+                    and not draft.calls["prefill"])
+        else:
+            good = good and ex.calls["pipeline_verify"] == sum(
+                st.verify_dispatches) == ex.calls["verify_rows"]
+        rows = []
+        for uid, prompt, new, arrival in requests:
+            r, lr = res[uid], local["results"][uid]
+            same, tie = _lossless(target, prompt, r.tokens, want[uid])
+            as_local = bool((r.tokens == lr.tokens).all()) and all(
+                getattr(r.stats, k) == getattr(lr.stats, k) for k in STATS)
+            diff = _logit_diff(r.exit_logits, lr.exit_logits)
+            good = good and same and (as_local or tie is not None)
+            if kind == "flush":
+                good = good and diff == 0.0
+            rows.append({"uid": uid, "prompt_len": len(prompt),
+                         "arrival_t": arrival, "latency_s": r.latency_s,
+                         "acceptance": r.stats.acceptance,
+                         "timesteps": r.stats.timesteps,
+                         "lossless": same, "near_tie": tie,
+                         "equals_serve_db": as_local,
+                         "max_logit_diff_vs_serve_db": diff})
+        ok = ok and good
+        n = max(st.timesteps, 1)
+        emit({"phase": phase, "ok": good, "mode": "pipedec-db",
+              "executor": "sharded", "overlap": kind == "overlap",
+              "arena": "paged" if paged else "dense",
+              "page": PAGE if paged else None,
+              "target": target.cfg.name, "draft": draft.cfg.name,
+              "reduced": {"target_layers": f"{target.cfg.num_layers} of "
+                          f"{pipedec_pair.TARGET.num_layers}"},
+              "n_stages": pcfg.n_stages, "slots": DB_SLOTS,
+              "max_len": DB_MAX_LEN,
+              "prefill_cap": ex.prefill_cap if kind == "overlap" else None,
+              "timesteps": st.timesteps,
+              "serve_db_timesteps": local["timesteps"],
+              "peak_occupancy": st.peak_occupancy,
+              "tokens_per_timestep": st.tokens_per_timestep,
+              "acceptance_rate": st.acceptance_rate,
+              "serve_s": serve_s, "ms_per_timestep": 1e3 * serve_s / n,
+              "serve_db_ms_per_timestep": local["ms_per_timestep"],
+              "launches_per_timestep": sum(launches.values()) / n,
+              "serve_db_launches_per_timestep":
+                  local["launches_per_timestep"],
+              "ctrl_active_share": (ex.calls["ctrl_active_ticks"]
+                                    / max(ex.calls["pipeline_tick"], 1)
+                                    if kind == "overlap" else None),
+              "peak_mem_gb": peak_gb, "executor_calls": dict(ex.calls),
+              "calls": {"target": dict(target.calls),
+                        "draft": dict(draft.calls)},
+              "launches": launches, "expected_launches": expect,
+              "requests": rows})
+    if not ok:
+        raise AssertionError(f"{phase} phase failed: see its lines")
+
+
+def phase_serve_db_sharded(state):
+    _ring_phase("serve-db-sharded", "flush", state)
+
+
+def phase_serve_db_overlap(state):
+    _ring_phase("serve-db-overlap", "overlap", state)
+
+
+def phase_self_draft_db_overlap(state):
+    """The 8-layer target as its own draft on the overlapped 8-stage ring,
+    paged, 3 requests on 2 slots: every prediction hits, so the ctrl
+    channel commits and compacts at every stage, and each retire kills.
+    Per request: acceptance 1.0 and tokens equal to autoregressive
+    decoding (near-tie rule); remap_rows, ctrl-active ticks and stage
+    ctrl applications > 0; launch counts against the model calls."""
+    from repro_torch.core.baselines import generate_autoregressive
+    from repro_torch.core.pipedec import PipeDecConfig
+    import numpy as np
+    target = state["target"]
+    pcfg = PipeDecConfig(n_stages=8, width=8, branch=4)
+    requests = [(uid, np.array(p), SELF_DRAFT_NEW_TOKENS, 0)
+                for uid, p in enumerate(SELF_DRAFT_DB_PROMPTS)]
+    engine, res, ex, serve_s, _, launches, expect = _ring_run(
+        "overlap", target, target, requests, paged=True, slots=2, pcfg=pcfg)
+    calls = dict(target.calls)
+    st = engine.db_stats
+    per, ok = {}, True
+    for uid, prompt, new, _ in requests:
+        g = res[uid].stats
+        same, tie = _lossless(target, prompt, res[uid].tokens,
+                              generate_autoregressive(target, prompt, new))
+        per[uid] = {"acceptance": g.acceptance,
+                    "tokens_per_timestep": g.tokens_per_timestep,
+                    "lossless": same, "near_tie": tie}
+        ok = ok and same and g.acceptance == 1.0
+    ok = (ok and ex.calls["remap_rows"] > 0
+          and ex.calls["ctrl_active_ticks"] > 0
+          and ex.calls["stage_ctrl"] > 0 and ex.calls["kill"] >= 3
+          and ex.calls["pipeline_tick"] == st.timesteps
+          and launches_ok(launches, expect, RING_PATHS[True]))
+    emit({"phase": "self-draft-db-overlap", "ok": ok, "arena": "paged",
+          "n_stages": pcfg.n_stages, "slots": 2, "per_request": per,
+          "timesteps": st.timesteps, "peak_occupancy": st.peak_occupancy,
+          "ms_per_timestep": 1e3 * serve_s / max(st.timesteps, 1),
+          "ctrl_active_share": ex.calls["ctrl_active_ticks"]
+          / max(ex.calls["pipeline_tick"], 1),
+          "executor_calls": dict(ex.calls), "calls": calls,
+          "launches": launches, "expected_launches": expect,
+          "wall_s": serve_s})
+    if not ok:
+        raise AssertionError("self-draft-db-overlap: lossless tokens, "
+                             "acceptance 1.0, ctrl commits and compacts, "
+                             "kills and launches as expected are required")
 
 
 # ---------------------------------------------------------------------------
@@ -2269,6 +2534,9 @@ CLI_RUNS = (  # (mode flags, --quant, the kernels that run on that path)
     (("--mode", "pp"), "none", ("flash_attention_lse",)),  # no tree in pp
     (("--mode", "pipedec"), "none", FP32_PATH),
     (("--mode", "pipedec-db", "--paged"), "none", PAGED_PATH),
+    (("--mode", "pipedec-db", "--executor", "sharded"), "none", FP32_PATH),
+    (("--mode", "pipedec-db", "--executor", "sharded", "--overlap"), "none",
+     FP32_PATH),
     (("--mode", "pp"), "int8", ("flash_attention_lse int8",
                                 "dequant_matmul")),
     (("--mode", "pipedec"), "int8", INT8_PATH),
@@ -2334,8 +2602,9 @@ def phase_cli(state):
             engine, res = serve.main([*flags, "--requests", "3",
                                       "--new-tokens", "12", "--quant", quant])
         wall_s = time.perf_counter() - t0
-        launches, expect = read_launches(engine.target, engine.draft,
-                                         paged="--paged" in flags)
+        launches, expect = read_ring_launches(
+            engine.executor, engine.target, engine.draft,
+            paged="--paged" in flags)
         good = len(res) == 3 and all(
             len(r.tokens) == 13 and (r.tokens >= 0).all()
             and (r.tokens < pipedec_pair.TARGET_SMOKE.vocab_size).all()
@@ -2436,6 +2705,10 @@ def main() -> int:
                         ("self-draft", phase_self_draft),
                         ("serve-db", phase_serve_db),
                         ("self-draft-db", phase_self_draft_db),
+                        ("serve-db-sharded", phase_serve_db_sharded),
+                        ("serve-db-overlap", phase_serve_db_overlap),
+                        ("self-draft-db-overlap",
+                         phase_self_draft_db_overlap),
                         ("stpp", phase_stpp),
                         ("self-draft-stpp", phase_self_draft_stpp),
                         ("chain", phase_chain),

@@ -73,7 +73,9 @@ class Flight:
     """One in-flight tree layer between entry and exit."""
     exit_t: int
     node_idx: np.ndarray      # [w] int32 tree indices (-1 invalid)
-    logits: torch.Tensor      # [w, V] target verify logits
+    # [w, V] target verify logits, or a deferred handle whose resolve()
+    # gives them at exit (the overlapped ring's Deferred futures)
+    logits: object
 
 
 @dataclasses.dataclass
@@ -302,7 +304,10 @@ class PipeDecEngine:
         the number of commits (1)."""
         p = self.pcfg
         sp = st.sampling if st.sampling is not None else p.sampling
-        x = select_token(fl.logits[root_row], sp, st.generator)
+        logits = fl.logits
+        if hasattr(logits, "resolve"):   # a future the exit tick resolved
+            logits = logits.resolve()
+        x = select_token(logits[root_row], sp, st.generator)
         st.committed.append(x)
         st.stats.commits += 1
         (commit_caches or self._commit_own_caches)(st)

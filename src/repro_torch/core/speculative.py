@@ -82,6 +82,13 @@ class ModelBundle:
         self.calls["prefill"] += 1
         return tf.prefill(self.model, tokens, cache)
 
+    def prefill_chunk(self, tokens, cache, chunk_start, *, on=None):
+        """(logits [B,s,V], cache) for one prompt chunk per row at
+        ``chunk_start`` (``transformer.prefill_chunk``)."""
+        self.calls["prefill_chunk"] += 1
+        return tf.prefill_chunk(self.model, tokens, cache, chunk_start,
+                                on=on)
+
     def decode(self, token, cache, cache_len):
         """(logits [B,V], cache) for one token per row at ``cache_len``."""
         self.calls["decode"] += 1

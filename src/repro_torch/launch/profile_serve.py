@@ -22,10 +22,15 @@ an earlier commit's code is profiled with the same counts.
 ``--mode pipedec-db`` profiles SpecPipe-DB timesteps instead: DB_SLOTS
 requests admitted at once on the local executor (``--paged`` for the
 block-paged arena, whose tree verify runs the paged kernels), so every
-profiled timestep runs at occupancy DB_SLOTS.
+profiled timestep runs at occupancy DB_SLOTS.  ``--executor sharded``
+runs them on the 8-stage ring instead (``ShardedPipelineExecutor``, one
+flush per timestep), and ``--overlap`` on the overlapped ring
+(``OverlappedShardedExecutor``, one tick per timestep, prefill in the
+ring; its warm-up also covers the requests' joining ticks).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-      [--quant int8] [--mode pipedec-db [--paged]]
+      [--quant int8] [--mode pipedec-db [--paged]
+      [--executor sharded [--overlap]]]
 """
 from __future__ import annotations
 
@@ -49,7 +54,9 @@ from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, tree_block
 from repro_torch.models import transformer as tf
-from repro_torch.serving import LocalFusedExecutor, Request, SpecPipeDBEngine
+from repro_torch.serving import (LocalFusedExecutor,
+                                 OverlappedShardedExecutor, Request,
+                                 ShardedPipelineExecutor, SpecPipeDBEngine)
 
 TARGET_LAYERS, STAGES, PROMPT_LEN, WARMUP, STEPS = 8, 8, 64, 8, 16
 DB_SLOTS, DB_PROMPT_LENS, MAX_LEN = 3, (64, 96, 80), 512
@@ -103,9 +110,18 @@ def main(argv=None) -> None:
                     default="pipedec")
     ap.add_argument("--paged", action="store_true",
                     help="pipedec-db: the block-paged arena (16-row pages)")
+    ap.add_argument("--executor", choices=["local", "sharded"],
+                    default="local",
+                    help="pipedec-db: the local fused executor or the "
+                         "8-stage ring")
+    ap.add_argument("--overlap", action="store_true",
+                    help="--executor sharded: one ring tick per timestep")
     args = ap.parse_args(argv)
-    if args.paged and args.mode != "pipedec-db":
-        ap.error("--paged needs --mode pipedec-db")
+    if (args.paged or args.executor != "local") and \
+            args.mode != "pipedec-db":
+        ap.error("--paged and --executor need --mode pipedec-db")
+    if args.overlap and args.executor != "sharded":
+        ap.error("--overlap needs --executor sharded")
 
     dev = resolve_device("cuda")
     tcfg = dataclasses.replace(pipedec_pair.TARGET,
@@ -130,10 +146,15 @@ def main(argv=None) -> None:
         def step():
             eng.step(st)
     else:
-        ex = LocalFusedExecutor(target, draft, slots=DB_SLOTS,
-                                max_len=MAX_LEN,
-                                tree_capacity=pcfg.tree_buffer_capacity,
-                                capacity=pcfg.capacity, paged=args.paged)
+        kw = dict(slots=DB_SLOTS, max_len=MAX_LEN,
+                  tree_capacity=pcfg.tree_buffer_capacity,
+                  capacity=pcfg.capacity, paged=args.paged)
+        if args.executor == "sharded":
+            cls = (OverlappedShardedExecutor if args.overlap
+                   else ShardedPipelineExecutor)
+            ex = cls(target, draft, n_stages=STAGES, **kw)
+        else:
+            ex = LocalFusedExecutor(target, draft, **kw)
         db = SpecPipeDBEngine(target, draft, pcfg, max_len=MAX_LEN,
                               max_slots=DB_SLOTS, executor=ex)
         # budgets no request reaches within the window: occupancy stays
@@ -143,7 +164,9 @@ def main(argv=None) -> None:
                               n_steps))
         timesteps = db.steps()
         step = functools.partial(next, timesteps)
-    for _ in range(WARMUP):
+    # the overlapped ring admits through its prefill lane: each request
+    # joins after its chunks crossed the STAGES stages
+    for _ in range(WARMUP + (STAGES + 2 if args.overlap else 0)):
         step()
     torch.cuda.synchronize()
 
@@ -172,6 +195,7 @@ def main(argv=None) -> None:
                  else db.stats.occupancy[-1])
     _emit({"profile": "timestep", "device": torch.cuda.get_device_name(0),
            "mode": args.mode, "paged": args.paged, "occupancy": occupancy,
+           "executor": args.executor, "overlap": args.overlap,
            "quant": args.quant, "target_layers": TARGET_LAYERS,
            "stages": STAGES,
            "steps": STEPS, "wall_ms": wall_ms,

@@ -10,10 +10,18 @@ runs the smoke-size pair on the card; ``--device cpu`` runs it on the
 CPU; ``--quant int8`` serves both bundles quantized
 (``ModelBundle.quantize()``: int8 projections through the dequant-matmul
 kernel, an int8 KV cache through the attention kernels' int8 mode).
-``--mode pipedec-db`` serves SpecPipe-DB on the local executor with
-``--slots`` slots, over a dense arena or, with ``--paged``, a block-paged
-one (``--page-size`` rows per block), whose tree verify runs the paged
-attention kernels.  ``-h`` lists the flags.
+``--mode pipedec-db`` serves SpecPipe-DB with ``--slots`` slots, over a
+dense arena or, with ``--paged``, a block-paged one (``--page-size`` rows
+per block).  ``--executor local`` (the default) runs the fused local
+executor, whose paged tree verify runs the paged attention kernels;
+``--executor sharded`` runs the target on the ``--stages``-stage ring
+(``launch.pipeline``), one flush of the ring per timestep, and with
+``--overlap`` one ring tick per timestep (the paper's steady state, with
+admission prefill in the ring).  ``--executor async`` and int8 bundles on
+the ring are not ported.  ``-h`` lists the flags.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pipedec-db \
+      --executor sharded --overlap --stages 4 --device cpu
 """
 from __future__ import annotations
 
@@ -28,8 +36,9 @@ from repro_torch.core.pipedec import PipeDecConfig
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.serving import (LocalFusedExecutor, Request, Result,
-                                 ServingEngine)
+from repro_torch.serving import (LocalFusedExecutor,
+                                 OverlappedShardedExecutor, Request, Result,
+                                 ServingEngine, ShardedPipelineExecutor)
 
 
 def build_bundle(arch: str, *, seed: int, ckpt: str = "",
@@ -52,6 +61,15 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--mode", choices=["pp", "pipedec", "pipedec-db"],
                     default="pipedec")
+    ap.add_argument("--executor", choices=["local", "sharded", "async"],
+                    default="local",
+                    help="pipedec-db compute backend: local (fused, one "
+                         "device) or sharded (the target on the "
+                         "--stages-stage ring; async is not ported)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="sharded executor only: one ring tick per "
+                         "timestep with deferred exit logits and prefill "
+                         "in the ring, instead of one flush per timestep")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -74,6 +92,16 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     args = ap.parse_args(argv)
     if args.paged and args.mode != "pipedec-db":
         ap.error("--paged needs --mode pipedec-db")
+    if args.executor == "async":
+        ap.error("--executor async (free-running stage actors) is not "
+                 "ported: ROADMAP.md queue 1 item 11b, the next slice")
+    if args.executor == "sharded" and args.mode != "pipedec-db":
+        ap.error("--executor sharded needs --mode pipedec-db")
+    if args.overlap and args.executor != "sharded":
+        ap.error("--overlap needs --mode pipedec-db --executor sharded")
+    if args.executor == "sharded" and args.quant == "int8":
+        ap.error("--quant int8 is not served on the pipeline ring: "
+                 "ROADMAP.md queue 1 item 11b")
 
     target = build_bundle("pipedec-target", seed=0, device=args.device)
     draft = None
@@ -87,10 +115,16 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     max_len = 512
     executor = None
     if args.mode == "pipedec-db":
-        executor = LocalFusedExecutor(
-            target, draft, slots=args.slots, max_len=max_len,
-            tree_capacity=pcfg.tree_buffer_capacity, capacity=pcfg.capacity,
-            paged=args.paged, page=args.page_size)
+        kw = dict(slots=args.slots, max_len=max_len,
+                  tree_capacity=pcfg.tree_buffer_capacity,
+                  capacity=pcfg.capacity, paged=args.paged,
+                  page=args.page_size)
+        if args.executor == "sharded":
+            cls = (OverlappedShardedExecutor if args.overlap
+                   else ShardedPipelineExecutor)
+            executor = cls(target, draft, n_stages=args.stages, **kw)
+        else:
+            executor = LocalFusedExecutor(target, draft, **kw)
     engine = ServingEngine(target, draft, mode=args.mode,
                            max_batch=args.slots, max_len=max_len,
                            pipedec=pcfg, executor=executor)

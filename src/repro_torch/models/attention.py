@@ -18,7 +18,9 @@ through transposed views.  The kernels have no backward, so training
 attends in plain PyTorch under autograd (``attn_train``), as the JAX
 package's training forward attends in plain ``jnp``: ``gqa_attend`` under
 a causal mask, or ``chunked_causal_attend`` from
-``CHUNKED_ATTN_THRESHOLD`` keys on.
+``CHUNKED_ATTN_THRESHOLD`` keys on.  The pipeline ring's chunked prefill
+(``attn_prefill_chunk``) also attends through ``gqa_attend``, as the
+reference's does, outside its kernels.
 
 A cache leaf may also be block-paged (``models.paging.Paged``: a row pool
 behind a per-slot block table, the SpecPipe-DB paged arena).  Then decode
@@ -38,12 +40,13 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.quant import quantize_rows
+from repro_torch.kernels.quant import dequantize_rows, quantize_rows
 from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (QuantWeight, apply_rope, dense_init_,
@@ -181,18 +184,41 @@ def kv_updates(cache, k, v):
     return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
-def write_index(buf, starts: Sequence[int], b: int, n: int):
+def write_index(buf, starts: Sequence[int], b: int, n: int, *, on=None,
+                drop: bool = False):
     """Where a write of ``n`` rows per batch row at ``starts`` (one start
     broadcasts over ``b`` rows) lands in cache leaf ``buf``: the physical
     pool rows [b, n] of a paged leaf (``paging.len_rows``; rows past the
-    end go to the null block), None for a dense write at one start (a
-    slice), else the rows [b, n] of a dense leaf on its device, checked on
-    the host to fit.  The leaves of one cache share it."""
+    end and rows of batch rows with ``on[b]`` False go to the null block),
+    None for a dense write at one start (a slice), else the rows [b, n] of
+    a dense leaf on its device, checked on the host to fit.
+
+    With a row mask ``on`` (host bools [b]) or ``drop``, a dense write
+    keeps only the rows of batch rows that are on and, with ``drop``, that
+    lie inside the buffer (the reference's drop semantics at the
+    ``max_len`` edge): the index is then the (batch, row, source) triple
+    of the kept rows, built on the host.  The leaves of one cache share
+    it."""
     rows = list(starts) * b if len(starts) == 1 else list(starts)
     if paging.is_paged(buf):
-        return paging.len_rows(buf, rows, n)
+        return paging.len_rows(buf, rows, n, on)
     length = buf.shape[1]
-    if len(rows) != b or min(rows) < 0 or max(rows) + n > length:
+    if len(rows) != b:
+        raise IndexError(f"cache write of {n} rows at {rows} for {b} "
+                         "batch rows")
+    if on is not None or drop:
+        keep = np.ones((b, n), bool) if on is None else np.repeat(
+            np.asarray(on, bool).reshape(b, 1), n, axis=1)
+        pos = np.asarray(rows, np.int64)[:, None] + np.arange(n)
+        if not drop and keep.any() and (pos[keep].min() < 0
+                                        or pos[keep].max() >= length):
+            raise IndexError(f"cache write of {n} rows at {rows} does not "
+                             f"fit {length} rows")
+        keep &= (pos >= 0) & (pos < length)
+        bi, ji = np.nonzero(keep)
+        return tuple(torch.as_tensor(a, device=buf.device) for a in (
+            bi, pos[bi, ji], bi * n + ji))
+    if min(rows) < 0 or max(rows) + n > length:
         raise IndexError(f"cache write of {n} rows at {rows} does not "
                          f"fit {length} rows")
     if len(set(rows)) == 1:
@@ -202,20 +228,26 @@ def write_index(buf, starts: Sequence[int], b: int, n: int):
 
 
 def cache_write_rows(cache, updates, starts: Sequence[int], *,
-                     index=None):
+                     index=None, on=None, drop: bool = False):
     """Per-row write: batch row b of every update lands at rows
-    [starts[b], starts[b]+n) (one start broadcasts), in place.  ``index``
-    is the leaves' shared ``write_index``, computed here when not given
+    [starts[b], starts[b]+n) (one start broadcasts), in place.  ``on``
+    (host bools [b]) leaves the rows of the batch rows that are off
+    untouched; ``drop`` drops rows past the buffer's end instead of
+    refusing the write.  ``index`` is the leaves' shared ``write_index``
+    (given with the same ``on``/``drop``), computed here when not given
     (a caller writing every layer's cache at the same rows computes it
     once)."""
     first = next(iter(updates))
     b, n = updates[first].shape[:2]
     if index is None:
-        index = write_index(cache[first], starts, b, n)
+        index = write_index(cache[first], starts, b, n, on=on, drop=drop)
     for name, u in updates.items():
         buf = cache[name]
         if paging.is_paged(buf):
             paging.write_len_rows(buf, u, None, rows=index)
+        elif isinstance(index, tuple):
+            bi, ri, src = index
+            buf[bi, ri] = u.reshape(b * n, *u.shape[2:])[src].to(buf.dtype)
         elif index is None:
             s0 = int(starts[0])
             buf[:, s0:s0 + n] = u
@@ -286,6 +318,45 @@ def attn_train(p: Attention, cfg: ModelConfig, x, positions, *,
     else:
         out = gqa_attend(q, k, v, causal_mask(s, s, 0, window, x.device))
     return _out(p, out)
+
+
+def _kv_read(cache, name: str):
+    """K or V of a whole cache as dense fp32 [B, L, KV, hd]: a paged leaf
+    gathered through its table, an int8 one dequantized with its row
+    scales (the reference's ``_kv_read``)."""
+    def dense(buf):
+        return paging.to_dense(buf) if paging.is_paged(buf) else buf
+    if "k_scale" in cache:
+        return dequantize_rows(dense(cache[name]),
+                               dense(cache[name + "_scale"]))
+    return dense(cache[name])
+
+
+def attn_prefill_chunk(p: Attention, cfg: ModelConfig, x, positions, cache,
+                       chunk_start: Sequence[int], *, window: int = 0,
+                       on=None):
+    """One prefill chunk against the model cache (chunked prefill in the
+    pipeline ring).
+
+    x [B,s,d] holds chunk rows at absolute ``positions`` [B,s] (device)
+    ``= chunk_start[b] + i`` (host ints).  The chunk's K/V rows are
+    written into the cache first (rows past the cache's end dropped, batch
+    rows whose ``on[b]`` is False left untouched), then the queries attend
+    decode-style over the whole cache with the bound ``kpos <= position``,
+    in plain PyTorch (``gqa_attend``), as the reference does: chunk c sees
+    the rows earlier chunks wrote, so streaming a prompt in chunks caches
+    the rows a one-chunk pass caches.  Returns (out [B,s,d], cache)."""
+    q, k, v = project_qkv(p, cfg, x, positions)
+    cache_write_rows(cache, kv_updates(cache, k, v), chunk_start, on=on,
+                     drop=True)
+    keys = _kv_read(cache, "k")
+    kpos = torch.arange(keys.shape[1], device=x.device)[None, None, None]
+    qpos = positions[:, None, :, None]
+    valid = kpos <= qpos
+    if window:
+        valid &= kpos > qpos - window
+    out = gqa_attend(q, keys, _kv_read(cache, "v"), valid)
+    return _out(p, out), cache
 
 
 def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,

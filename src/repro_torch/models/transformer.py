@@ -7,6 +7,8 @@ package stacks the layers along a leading axis).  The model is run by
 plain functions, as in the JAX package:
 
   * ``prefill``          - a whole prompt, filling the model KV cache;
+  * ``prefill_chunk``    - one chunk of a prompt fed in chunks (the
+                           pipeline ring's admission lane);
   * ``decode_step``      - one token per batch row against the cache;
   * ``tree_verify_step`` - one prediction-tree layer against the two-level
                            cache (model cache + tree cache, paper 3.4.2);
@@ -283,6 +285,34 @@ def prefill(model: Transformer, tokens, cache):
 
     x = _run_layers(model, x, attend)
     return _logits(model, x[:, -1]), cache
+
+
+@torch.no_grad()
+def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
+                  on=None):
+    """Fill the model cache with one chunk of a longer prompt: row b's
+    ``tokens[b]`` [B,s] sit at positions [chunk_start[b], chunk_start[b] +
+    s) (host ints; one broadcasts).  Chunks are fed in order, each
+    attending over the rows earlier chunks wrote
+    (``attention.attn_prefill_chunk``); rows past the cache's end are
+    dropped, and batch rows whose ``on[b]`` is False are left untouched.
+    Returns (logits [B,s,V] of every chunk position, cache)."""
+    cfg = model.cfg
+    tokens = _tokens(model, tokens)
+    b, s = tokens.shape
+    start = host_rows(chunk_start, b)
+    positions = (torch.as_tensor(start, device=model.device)[:, None]
+                 + torch.arange(s, device=model.device))
+    x = embed(model.embed.table, tokens)
+
+    def attend(i, mixer, h):
+        y, _ = attn.attn_prefill_chunk(mixer, cfg, h, positions, cache[i],
+                                       start, on=on,
+                                       window=cfg.sliding_window)
+        return y
+
+    x = _run_layers(model, x, attend)
+    return _logits(model, x), cache
 
 
 @torch.no_grad()

@@ -1,15 +1,19 @@
 """Serving front door of the port, and SpecPipe-DB (dynamic batching)
-with its local executor, arenas and scheduler."""
+with its executors (local, and the stage ring's flush and overlapped
+schedules), arenas and scheduler."""
 from repro_torch.serving.dynbatch import (DBStats, SpecPipeDBEngine,
                                           generate_with_executor)
 from repro_torch.serving.engine import Request, Result, ServingEngine
-from repro_torch.serving.executor import LocalFusedExecutor, PipelineExecutor
+from repro_torch.serving.executor import (Deferred, LocalFusedExecutor,
+                                          OverlappedShardedExecutor,
+                                          PipelineExecutor,
+                                          ShardedPipelineExecutor)
 from repro_torch.serving.scheduler import (DynamicBatchScheduler, KVArena,
                                            PageAllocator, PagedKVArena,
                                            PagePool, SlotPool)
 
-__all__ = ["DBStats", "DynamicBatchScheduler", "KVArena",
-           "LocalFusedExecutor", "PageAllocator", "PagePool",
+__all__ = ["DBStats", "Deferred", "DynamicBatchScheduler", "KVArena", "LocalFusedExecutor",
+           "OverlappedShardedExecutor", "PageAllocator", "PagePool",
            "PagedKVArena", "PipelineExecutor", "Request", "Result",
-           "ServingEngine", "SlotPool", "SpecPipeDBEngine",
-           "generate_with_executor"]
+           "ServingEngine", "ShardedPipelineExecutor", "SlotPool",
+           "SpecPipeDBEngine", "generate_with_executor"]

@@ -25,13 +25,23 @@ One global timestep:
      slots and ONE batched prune remap over the pruned ones;
   3. retire - requests at eos or their token budget free their slot.
 
+On an overlapped executor (``serving.executor.OverlappedShardedExecutor``)
+the schedule is the paper's steady state: ONE ring tick per executed
+timestep, whether or not an entry is pending; each flight holds a
+``Deferred`` future that the tick of its exit timestep resolves;
+commits and prunes ride the next tick as a ctrl message; a miss kills the
+slot's in-flight layers and a retire kills them and clears its messages.
+Admission prefill rides the ring's prefill lane (``begin_prefill``): the
+request waits as *joining* until its prompt's last chunk exits
+``n_stages - 1`` ticks after entering, and its ``DecodeState`` is seeded
+from the resolved logits.
+
 ``run(on_token=...)`` streams ``(uid, token, timestep)`` as tokens are
 committed (the admission timestep for the prefill token); the streamed
 prefix always equals the final ``Result.tokens``.
 
-Not ported: the reference's overlapped and asynchronous schedules
-(``_advance_overlapped``, ring prefill, ``kill``/``drain``); an executor
-with ``overlapped=True`` is refused (``ROADMAP.md`` queue 1 item 11).
+Not ported: the reference's asynchronous schedule
+(``AsyncPipelineExecutor``, ``ROADMAP.md`` queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -61,25 +71,44 @@ class _Active:
 
 
 @dataclasses.dataclass
+class _Joining:
+    """A request whose admission prefill rides the ring's prefill lane
+    (overlapped executor): its slot is taken, and once the
+    ``Deferred`` prefill future resolves its ``DecodeState`` is seeded from the
+    resolved logits and it goes active."""
+    req: object
+    seed: int
+    handle: object            # executor.Deferred
+    t0: float
+
+
+@dataclasses.dataclass
 class DBStats:
     """Aggregate statistics of one ``run()``.
 
     ``timesteps`` counts *executed* shared timesteps (idle gaps between
     sparse arrivals are skipped), aligned 1:1 with ``occupancy``.
     ``verify_dispatches`` traces the fused verifies per model per timestep
-    (0 when no slot had a pending entry, else exactly 1).  ``accepted`` /
-    ``proposed`` count verify decisions per uid (a hit accepts the drafted
-    node).  ``page_counters`` traces the paged arena's pool counters per
-    timestep (empty on a dense arena)."""
+    (0 when no slot had a pending entry, else exactly 1).
+    ``tick_dispatches`` traces the overlapped executor's ring ticks per
+    timestep (exactly 1 each; empty on the other executors).
+    ``accepted`` / ``proposed`` count verify decisions per uid (a hit
+    accepts the drafted node).  ``separate_prefill_dispatches`` counts
+    admissions prefilled by ``executor.prefill`` instead of the ring's
+    prefill lane (0 on an overlapped executor).
+    ``page_counters`` traces the paged arena's pool counters per timestep
+    (empty on a dense arena)."""
     timesteps: int = 0
     total_commits: int = 0
     per_request: Dict[int, GenStats] = dataclasses.field(default_factory=dict)
     occupancy: List[int] = dataclasses.field(default_factory=list)
     verify_dispatches: List[int] = dataclasses.field(default_factory=list)
+    tick_dispatches: List[int] = dataclasses.field(default_factory=list)
     accepted: Dict[int, int] = dataclasses.field(default_factory=dict)
     proposed: Dict[int, int] = dataclasses.field(default_factory=dict)
     total_accepted: int = 0
     total_proposed: int = 0
+    separate_prefill_dispatches: int = 0
     page_counters: List[Dict] = dataclasses.field(default_factory=list)
 
     @property
@@ -138,10 +167,6 @@ class SpecPipeDBEngine:
                 target, draft, slots=max_slots, max_len=max_len,
                 tree_capacity=self.inner.tree_buffer_capacity,
                 capacity=self.pcfg.capacity)
-        if getattr(executor, "overlapped", False):
-            raise NotImplementedError(
-                "the overlapped SpecPipe-DB schedule is not ported: "
-                "ROADMAP.md queue 1 item 11 (pipeline-parallel executors)")
         if executor.slots != max_slots:
             raise ValueError(f"executor has {executor.slots} slots, "
                              f"max_slots is {max_slots}")
@@ -150,6 +175,16 @@ class SpecPipeDBEngine:
         if not fused and not isinstance(self.arena, KVArena):
             raise ValueError("the looped (fused=False) mode needs a local "
                              "KVArena backend")
+        self.overlapped = bool(getattr(executor, "overlapped", False))
+        if self.overlapped:
+            if not fused:
+                raise ValueError("the overlapped schedule is fused")
+            if executor.n_stages != self.pcfg.n_stages:
+                raise ValueError(
+                    f"overlapped executor: its {executor.n_stages} stages "
+                    f"must equal PipeDecConfig.n_stages "
+                    f"({self.pcfg.n_stages}); the ring is the flight "
+                    "bookkeeping, so the fill latencies must agree")
         self.sched = DynamicBatchScheduler(self.arena)
         self.trees = TreeBatch(max_slots, self.pcfg.capacity)
         self.max_slots = max_slots
@@ -164,8 +199,16 @@ class SpecPipeDBEngine:
         self.sched.submit(req)
 
     def _timestep_guard(self) -> int:
+        # a ring prefill adds the pipeline fill between admission and the
+        # first entry, plus one tick per extra chunk of a streamed prompt
+        cap = getattr(self.executor, "prefill_cap", 0)
+
+        def chunks(r):
+            return max(-(-int(np.asarray(r.prompt).size) // cap), 1) - 1 \
+                if cap else 0
         per_req = sum(r.max_new_tokens * (self.pcfg.n_stages + 2) + 17
-                      + self.pcfg.n_stages + 1 for r in self.sched.queue)
+                      + self.pcfg.n_stages + 1 + chunks(r)
+                      for r in self.sched.queue)
         arrivals = max((getattr(r, "arrival_t", 0)
                         for r in self.sched.queue), default=0)
         return 64 + arrivals + per_req
@@ -204,21 +247,29 @@ class SpecPipeDBEngine:
                             -1).astype(np.int32)
         return tokens, positions, masks, mlen, wi, row_on, node_idx
 
-    def _fused_entry(self, active: Dict[int, _Active],
-                     pending: List[int]) -> None:
-        """ONE bucketed verify per model over the stacked entry rows, then
-        ``apply_entry`` per pending slot with its rows of the logits."""
-        rows = self._entry_rows(active, pending)
-        tokens, positions, masks, mlen, wi, row_on, node_idx = rows
-        v_all, d_all = self.executor.verify_rows(tokens, positions, masks,
-                                                 mlen, wi, row_on)
+    def _apply_entries(self, active: Dict[int, _Active],
+                       pending: List[int], rows, v_of, d_all) -> None:
+        """``apply_entry`` per pending slot: ``v_of(slot)`` is its target
+        verify logits, a row of the fused logits or a ``Deferred`` future
+        (overlapped)."""
+        tokens, positions, masks, _, wi, _, node_idx = rows
         for slot in pending:
             entry = EntryInputs(tokens=tokens[slot],
                                 positions=positions[slot], mask=masks[slot],
                                 write_index=int(wi[slot]),
                                 node_idx=node_idx[slot])
-            self.inner.apply_entry(active[slot].state, entry, v_all[slot],
+            self.inner.apply_entry(active[slot].state, entry, v_of(slot),
                                    d_all[slot])
+
+    def _fused_entry(self, active: Dict[int, _Active],
+                     pending: List[int]) -> None:
+        """ONE bucketed verify per model over the stacked entry rows, then
+        ``apply_entry`` per pending slot with its rows of the logits."""
+        rows = self._entry_rows(active, pending)
+        tokens, positions, masks, mlen, wi, row_on, _ = rows
+        v_all, d_all = self.executor.verify_rows(tokens, positions, masks,
+                                                 mlen, wi, row_on)
+        self._apply_entries(active, pending, rows, lambda s: v_all[s], d_all)
 
     # -- per-timestep phases -------------------------------------------
     def _bump(self, active: Dict[int, _Active],
@@ -251,21 +302,25 @@ class SpecPipeDBEngine:
         self.executor.commit_rows(mlen_rows, mask_rows)
 
     def _apply_exits(self, active: Dict[int, _Active], stepping: List[int],
-                     picks) -> None:
+                     picks, *, kill_stale: bool = False) -> None:
         """Per-slot exit bookkeeping (token, prune, flight remap), then ONE
         batched prune remap over every pruned slot (identity rows for the
-        rest)."""
+        rest).  With ``kill_stale`` (overlapped) a miss also kills the
+        slot's in-flight ring layers: the pruning-propagation stage."""
         remaps: Dict[int, np.ndarray] = {}
         for slot in stepping:
             st = active[slot].state
             commits = 0
             if slot in picks:
                 fl, root_row = picks[slot]
+                misses0 = st.stats.misses
                 commits = self.inner.exit_apply(
                     st, fl, root_row,
                     commit_caches=lambda _st: None,   # batched above
                     remap_caches=lambda _st, imap, s=slot:
                         remaps.__setitem__(s, imap))
+                if kill_stale and st.stats.misses > misses0:
+                    self.executor.kill(slot)
             st.stats.commits_per_step.append(commits)
             self.trees.set_row(slot, st.tree)
             st.tree = None
@@ -291,6 +346,33 @@ class SpecPipeDBEngine:
         picks = self._pick_exits(active, stepping)
         self._commit_exits(active, picks)
         self._apply_exits(active, stepping, picks)
+
+    def _advance_overlapped(self, active: Dict[int, _Active],
+                            stepping: List[int]) -> None:
+        """One steady-state timestep: ONE ring tick takes the entry of
+        timestep t in and gives the exit of t - (n_stages - 1) out.  The
+        tick runs whether or not anything enters (the in-flight layers
+        must advance); entering slots get ``Deferred`` futures, and
+        the flights exiting now hold futures this tick resolved.  Commits
+        and prune maps ride the next tick's ctrl; a miss kills."""
+        pending = self._bump(active, stepping)
+        if pending:
+            rows = self._entry_rows(active, pending)
+        else:
+            rows = (*self.executor.dead_entry,
+                    np.zeros((self.max_slots,), bool), None)
+        tokens, positions, masks, mlen, wi, row_on, _ = rows
+        d_all, handles = self.executor.tick_rows(tokens, positions, masks,
+                                                 mlen, wi, row_on)
+        self.stats.verify_dispatches.append(1 if pending else 0)
+        self.stats.tick_dispatches.append(1)
+        self._apply_entries(active, pending, rows, lambda s: handles[s],
+                            d_all)
+        for slot in stepping:
+            self.inner.maybe_expand(active[slot].state)
+        picks = self._pick_exits(active, stepping)
+        self._commit_exits(active, picks)
+        self._apply_exits(active, stepping, picks, kill_stale=True)
 
     def _advance_looped(self, active: Dict[int, _Active],
                         stepping: List[int]) -> None:
@@ -329,21 +411,44 @@ class SpecPipeDBEngine:
         self.results = {}
         results = self.results
         active: Dict[int, _Active] = {}
+        joining: Dict[int, _Joining] = {}
         guard = self._timestep_guard()
         now = 0
-        while self.sched.pending or active:
-            if not active:
+        while self.sched.pending or active or joining:
+            if not active and not joining:
                 # pipeline drained: skip to the next arrival
                 nxt = self.sched.next_arrival()
                 if nxt is not None and nxt > now:
                     now = nxt
 
-            # 1. refill: join-on-prefill of arrived requests
+            # 0. join: requests whose ring prefill resolved go active,
+            # seeded from the resolved logits
+            for slot in [s for s in sorted(joining)
+                         if joining[s].handle.ready]:
+                j = joining.pop(slot)
+                st = self.inner.init_state(
+                    j.req.prompt, j.req.max_new_tokens, seed=j.seed,
+                    eos=self.eos_token,
+                    sampling=getattr(j.req, "sampling", None),
+                    prefill_fn=lambda _p, h=j.handle: h.resolve())
+                self.trees.adopt_row(slot, st.tree)
+                st.tree = None
+                active[slot] = _Active(j.req, st, j.t0)
+
+            # 1. refill: join-on-prefill of arrived requests (on the
+            # overlapped executor the prompt enters the ring's prefill
+            # lane with the next tick and the request waits as joining)
             for req, slot in self.sched.admit(now):
                 kw = dict(seed=request_seed(seed, req.uid),
                           eos=self.eos_token,
                           sampling=getattr(req, "sampling", None))
+                if self.overlapped:
+                    h = self.executor.begin_prefill(slot, req.prompt)
+                    joining[slot] = _Joining(req, kw["seed"], h,
+                                             time.perf_counter())
+                    continue
                 if self.fused:
+                    self.stats.separate_prefill_dispatches += 1
                     st = self.inner.init_state(
                         req.prompt, req.max_new_tokens,
                         prefill_fn=functools.partial(self.executor.prefill,
@@ -362,7 +467,9 @@ class SpecPipeDBEngine:
             self.stats.timesteps += 1
             stepping = [s for s in sorted(active)
                         if not active[s].state.done]
-            if self.fused:
+            if self.overlapped:
+                self._advance_overlapped(active, stepping)
+            elif self.fused:
                 self._advance_fused(active, stepping)
             else:
                 self._advance_looped(active, stepping)
@@ -379,6 +486,10 @@ class SpecPipeDBEngine:
                 self.stats.total_commits += st.stats.commits
                 self.stats.record_acceptance(a.req.uid, st.stats)
                 self.trees.release_row(slot)
+                if self.overlapped:
+                    # the slot is recycled: kill its in-flight layers and
+                    # drop its queued and riding ctrl
+                    self.executor.kill(slot, drop_ctrl=True)
                 self.sched.retire(a.req.uid, slot, now,
                                   caches=None if self.fused else st.caches())
 
@@ -393,6 +504,10 @@ class SpecPipeDBEngine:
                     f"SpecPipeDBEngine exceeded its timestep guard ({guard});"
                     f" {len(active)} active, {self.sched.pending} queued")
             yield now
+        if self.overlapped:
+            # every live flight resolved in the run (retires killed the
+            # rest): this leaves the ring clean for the next run
+            self.executor.drain()
 
     def run(self, seed: int = 0, on_token: Optional[Callable] = None):
         """Serve every submitted request; returns {uid: Result}.

@@ -18,10 +18,10 @@ from repro.serving import ServingEngine as JaxServingEngine
 from repro_torch.checkpoint import from_jax_params
 from repro_torch.configs import pipedec_pair
 from repro_torch.core.baselines import generate_autoregressive
-from repro_torch.core.pipedec import PipeDecConfig
+from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
 from repro_torch.core.speculative import ModelBundle, SamplingParams
 from repro_torch.launch import serve
-from repro_torch.serving import LocalFusedExecutor, Request, ServingEngine
+from repro_torch.serving import Request, ServingEngine
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,24 +85,58 @@ def test_pp_matches_jax_serving_engine():
         np.testing.assert_array_equal(got[uid].tokens, want[uid].tokens)
 
 
-def test_pipedec_db_is_not_ported(pair):
-    """What of SpecPipe-DB is not ported is refused: an overlapped
-    executor (the reference's pipeline-parallel schedules) names its
-    ROADMAP item; the speculative modes need a draft."""
-    class Overlapped(LocalFusedExecutor):
-        overlapped = True
-    pcfg = PipeDecConfig(n_stages=2, width=2, branch=2)
-    ex = Overlapped(*pair, slots=2, max_len=64,
-                    tree_capacity=pcfg.tree_buffer_capacity,
-                    capacity=pcfg.capacity)
-    eng = ServingEngine(*pair, mode="pipedec-db", max_batch=2, pipedec=pcfg,
-                        executor=ex)
-    eng.submit(Request(0, np.array([1, 2, 3]), 2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        eng.run()
+def test_pipedec_db_is_not_ported(pair, capsys):
+    """What of SpecPipe-DB is not ported is refused: the asynchronous
+    pipeline executor (``--executor async``) and int8 on the stage ring
+    name their ROADMAP item, the next slice; the speculative modes need a
+    draft."""
+    for flags in (["--executor", "async"],
+                  ["--executor", "sharded", "--quant", "int8"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--mode", "pipedec-db", "--device", "cpu", *flags])
+        assert "queue 1 item 11b" in capsys.readouterr().err
     for mode in ("pipedec", "pipedec-db"):
         with pytest.raises(ValueError):
             ServingEngine(pair[0], None, mode=mode)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cli_pipedec_db_sharded_on_cpu(overlap, paged, capsys):
+    """``--mode pipedec-db --executor sharded [--overlap] [--paged]``
+    serves the smoke pair on the stage ring; each request's tokens equal
+    the single-request PipeDec engine's."""
+    _check_cli_sharded(2, overlap, paged, capsys)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_cli_sharded_with_a_stage_of_padding_on_cpu(overlap, capsys):
+    """``--stages 3`` cuts the 4-layer smoke target into two layers a
+    stage, so the last stage holds only padding; the ring passes it
+    through and serves the single-request engine's tokens."""
+    engine = _check_cli_sharded(3, overlap, False, capsys)
+    assert not engine.executor.stage_valid[-1].any()
+
+
+def _check_cli_sharded(stages, overlap, paged, capsys):
+    argv = ["--mode", "pipedec-db", "--executor", "sharded", "--device",
+            "cpu", "--requests", "3", "--new-tokens", "5", "--stages",
+            str(stages), "--slots", "2"] + \
+        (["--overlap"] if overlap else []) + (["--paged"] if paged else [])
+    engine, results = serve.main(argv)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(results) == 3 and len(lines) == 3 and "acc=" in lines[0]
+    ex = engine.executor
+    assert ex.overlapped == overlap and ex.paged == paged
+    assert ex.calls["pipeline_tick" if overlap else "pipeline_verify"] > 0
+    single = PipeDecEngine(engine.target, engine.draft, engine.pipedec_cfg,
+                           max_len=512)
+    rng = np.random.default_rng(0)
+    for uid in range(3):
+        prompt = rng.integers(0, engine.target.cfg.vocab_size, size=8)
+        np.testing.assert_array_equal(results[uid].tokens,
+                                      single.generate(prompt, 5)[0])
+    return engine
 
 
 @pytest.mark.parametrize("mode", ["pp", "pipedec"])
