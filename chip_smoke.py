@@ -62,6 +62,16 @@ Phases, each printed as JSON objects, one per line:
                  overlapped 8-stage ring, paged, 3 requests on 2 slots:
                  every prediction hits, so commits and prunes propagate
                  through every stage, and each retire kills;
+ 6d. serve-db-async - phase 5's requests on ``AsyncPipelineExecutor``
+                 (8 free-running stage actors and a draft actor, one CUDA
+                 stream each, dense arena): tokens against phase 3's and
+                 6a's (near-tie rule), logits within 1e-4 of phase 5's,
+                 one stage step per entry per stage, a drained pipe, no
+                 actor thread after shutdown (called twice); wall ms per
+                 timestep beside 6a's and 6b's, each stage actor's busy
+                 and idle seconds and inbox depth, the draft's lead;
+ 6e. self-draft-db-async - 6c's requests on the async executor (dense):
+                 every prediction hits;
   7. stpp      - the paper's static-tree baseline (``STPPEngine``, depth
                  4, width 8, branch 4: the target verifies 33 nodes in one
                  pass) over the same pair and prompts: tokens checked
@@ -90,11 +100,23 @@ Phases, each printed as JSON objects, one per line:
  14. self-draft-int8 - the int8 target as its own draft;
  15. serve-db-int8 - the int8 pair on the paged arena, checked against
                  phase 12's int8 autoregressive tokens;
+15a. serve-db-int8-sharded - phase 15's requests on the int8 flush ring,
+                 dense and paged: tokens, per-request stats, every
+                 committed token's logits and the counted dequant_matmul
+                 launches equal to phase 15's;
+15b. serve-db-int8-overlap - the same on the int8 overlapped ring and the
+                 int8 async executor (dense): tokens equal to phase 15's
+                 (near-tie rule), logits within 1e-3;
  16. cli       - ``repro_torch.launch.serve.main`` in pp, pipedec and
                  pipedec-db --paged modes, fp32 and ``--quant int8``, and
-                 pipedec-db --executor sharded [--overlap] in fp32, and
-                 the smoke pair on the card against the same weights on the
-                 CPU, fp32 and int8.
+                 pipedec-db --executor sharded [--overlap] and --executor
+                 async, fp32 and int8, and the smoke pair on the card
+                 against the same weights on the CPU, fp32 and int8;
+ 17. sharded-check - ``python -m repro_torch.launch.sharded_check
+                 --stages 8`` with --overlap --async --quant, then with
+                 --overlap --paged --quant, each in a process of its own:
+                 every executor's tokens equal the single-request
+                 engine's on tiny models, with the scenarios.
 
 Between phases 2 and 3, with no serving model on the card:
 
@@ -181,6 +203,16 @@ TOL_INT8_CARD_CPU = 1e-3
 # near-tie rule of the lossless check: a token may differ from plain
 # decoding only where the autoregressive top-2 logit margin is below this
 NEAR_TIE = 1e-3
+# the async executor's committed-token logits against the local
+# executor's: its stages run every slot row (the local verify a bucket of
+# them), so the sgemms see another M and may sum in another order
+TOL_ASYNC_LOGITS = 1e-4
+# the int8 overlapped ring and async executor against the int8 local
+# executor: the int8 parity tolerance (tests/test_torch_quant_model.py):
+# a K/V value at a rounding tie may quantize one step apart
+TOL_INT8_RING = 1e-3
+# the sharded-check subprocesses (tiny models, 8 stages)
+SHARDED_CHECK_TIMEOUT_S = 420
 
 TARGET_LAYERS = 8        # one layer per stage of the paper's 8-stage pipeline
 SERVE_REQUESTS = 4
@@ -269,11 +301,11 @@ def cuda_ms(fn, batches: int = 21, per_batch: int = 10):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()                                   # warm-up off the capture
+        fn()        # warm-up on the capture stream, which owns the scratch
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(per_batch):
             fn()
     graph.replay()
@@ -1118,7 +1150,8 @@ def read_launches(*bundles, paged=False):
         layers, calls = b.cfg.num_layers, b.calls
         rows = calls.get("tree_verify_rows", 0)
         trees = calls.get("tree_verify", 0) + (0 if paged else rows)
-        forward = sum(calls.get(k, 0) for k in ("prefill", "decode")) + trees
+        forward = sum(calls.get(k, 0) for k in ("prefill", "decode",
+                                                "prefill_chunk")) + trees
         int8 = b.cfg.quant == "int8"
         mode = " int8" if int8 else ""
         expect["flash_attention_lse" + mode] += layers * forward
@@ -1750,6 +1783,7 @@ def _db_phase(phase, state, target, draft, requests, want, path, slots,
         state.setdefault("db_runs", {})[phase, paged] = {
             "results": res, "timesteps": st.timesteps,
             "ms_per_timestep": 1e3 * serve_s / max(st.timesteps, 1),
+            "launches": launches,
             "launches_per_timestep": sum(launches.values())
             / max(st.timesteps, 1)}
         if paged and not paged_only:
@@ -1863,19 +1897,29 @@ def phase_serve_db_int8(state):
 
 
 # ---------------------------------------------------------------------------
-# phases serve-db-sharded, serve-db-overlap and self-draft-db-overlap:
-# SpecPipe-DB on the 8-stage ring (launch/pipeline.py)
+# phases serve-db-sharded, serve-db-overlap, self-draft-db-overlap,
+# serve-db-async and self-draft-db-async: SpecPipe-DB on the 8-stage ring
+# (launch/pipeline.py) and on its free-running stage actors
 # ---------------------------------------------------------------------------
 def read_ring_launches(ex, *bundles, paged=False):
     """``read_launches`` plus the stage applications of executor ``ex``
-    (None: no executor): each layer the ring runs in tree mode launches
-    the dense flash and tree kernels once (the ring's caches are dense, or
-    densified around it); its chunk prefill attends in plain PyTorch and
-    launches nothing."""
+    (None: no executor): each layer the ring (or a stage actor) runs in
+    tree mode launches the dense flash and tree kernels once, and each
+    layer of its chunk prefill the dense flash kernel once, in their int8
+    mode for an int8 target (the ring's caches are dense, or densified
+    around it); an int8 target's projections launch dequant_matmul 7
+    times a layer."""
     launches, expect = read_launches(*bundles, paged=paged)
-    layers = ex.calls["stage_layers"] if ex is not None else 0
-    for row in ("flash_attention_lse", "tree_block_attention"):
-        expect[row] += layers
+    if ex is None:
+        return launches, expect
+    layers = ex.calls["stage_layers"]
+    chunk_layers = ex.calls["prefill_layers"]
+    int8 = ex.target.cfg.quant == "int8"
+    mode = " int8" if int8 else ""
+    expect["flash_attention_lse" + mode] += layers + chunk_layers
+    expect["tree_block_attention" + mode] += layers
+    if int8:
+        expect["dequant_matmul"] += PROJECTIONS * (layers + chunk_layers)
     return launches, expect
 
 
@@ -1884,27 +1928,45 @@ def read_ring_launches(ex, *bundles, paged=False):
 RING_PATHS = {False: FP32_PATH,
               True: FP32_PATH + ("paged_flash_attention_lse",
                                  "paged_tree_block_attention")}
+RING_INT8_PATHS = {False: INT8_PATH,
+                   True: INT8_PATH + ("paged_flash_attention_lse int8",
+                                      "paged_tree_block_attention int8")}
+# async: every blocking wait of the pipe (a failed actor raises within it)
+ASYNC_TIMEOUT_S = 120.0
+
+
+def _async_threads():
+    import threading
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith("async-")]
 
 
 def _ring_run(kind, target, draft, requests, *, paged, slots, pcfg):
     """One SpecPipe-DB run on the stage ring through
-    ServingEngine(mode="pipedec-db"): ``ShardedPipelineExecutor`` (flush)
-    or ``OverlappedShardedExecutor`` (its prefill lane: 64-token chunks, so
-    the 64-128-token prompts stream in one or two); launch
-    counts zeroed just before and read just after, exit logits recorded.
-    Returns (engine, results, executor, serve_s, peak_gb, launches,
-    expect)."""
+    ServingEngine(mode="pipedec-db"): ``ShardedPipelineExecutor`` (flush),
+    ``OverlappedShardedExecutor`` (its prefill lane: 64-token chunks, so
+    the 64-128-token prompts stream in one or two) or
+    ``AsyncPipelineExecutor`` (``async``: one actor thread and CUDA stream
+    per stage and one for the draft; dense only, shut down after the run,
+    twice); launch counts zeroed just before and read just after, exit
+    logits recorded.  Returns (engine, results, executor, serve_s,
+    peak_gb, launches, expect)."""
     import torch
-    from repro_torch.serving import (OverlappedShardedExecutor, Request,
+    from repro_torch.serving import (AsyncPipelineExecutor,
+                                     OverlappedShardedExecutor, Request,
                                      ServingEngine, ShardedPipelineExecutor)
     kw = dict(slots=slots, max_len=DB_MAX_LEN,
               tree_capacity=pcfg.tree_buffer_capacity,
-              capacity=pcfg.capacity, n_stages=pcfg.n_stages, paged=paged,
-              page=PAGE)
-    if kind == "overlap":
-        ex = OverlappedShardedExecutor(target, draft, **kw)
+              capacity=pcfg.capacity, n_stages=pcfg.n_stages)
+    if kind == "async":
+        ex = AsyncPipelineExecutor(target, draft, timeout_s=ASYNC_TIMEOUT_S,
+                                   **kw)
+    elif kind == "overlap":
+        ex = OverlappedShardedExecutor(target, draft, paged=paged, page=PAGE,
+                                       **kw)
     else:
-        ex = ShardedPipelineExecutor(target, draft, **kw)
+        ex = ShardedPipelineExecutor(target, draft, paged=paged, page=PAGE,
+                                     **kw)
     engine = ServingEngine(target, draft, mode="pipedec-db", max_batch=slots,
                            max_len=DB_MAX_LEN, pipedec=pcfg, executor=ex)
     for uid, prompt, new, arrival in requests:
@@ -1912,11 +1974,16 @@ def _ring_run(kind, target, draft, requests, *, paged, slots, pcfg):
     zero_launches(target, draft)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with exit_logits() as seen:
-        t0 = time.perf_counter()
-        results = engine.run()
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
+    try:
+        with exit_logits() as seen:
+            t0 = time.perf_counter()
+            results = engine.run()
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+    finally:
+        if kind == "async":
+            ex.shutdown()
+            ex.shutdown()                       # idempotent
     for r in results.values():
         r.exit_logits = seen.get(id(r.stats), [])
     launches, expect = read_ring_launches(ex, target, draft, paged=paged)
@@ -1933,44 +2000,92 @@ def _logit_diff(got, want):
                default=0.0)
 
 
-def _ring_phase(phase, kind, state):
+def _actors(ex):
+    """The async executor's per-stage actor counters and draft lead."""
+    c = ex.counters()
+    return {"stages": [{k: s[k] for k in ("busy_s", "idle_s", "max_depth",
+                                          "stale_rows")}
+                       for s in c["stages"]],
+            "max_draft_lead": c["max_draft_lead"],
+            "pushed": c["pushed"], "consumed": c["consumed"]}
+
+
+def _executor_ok(kind, ex, engine, target, draft, n_requests):
+    """The schedule's own checks: one flush per timestep with entries;
+    one tick per timestep and no separate prefill (overlapped); one entry
+    message per timestep with entries, one stage step per entry per
+    stage, a drained pipe, one separate prefill per admission and no
+    actor thread left (async)."""
+    st = engine.db_stats
+    if kind == "flush":
+        return ex.calls["pipeline_verify"] == sum(
+            st.verify_dispatches) == ex.calls["verify_rows"]
+    ticks = (ex.calls["pipeline_tick"] == st.timesteps
+             and st.tick_dispatches == [1] * st.timesteps)
+    if kind == "overlap":
+        return (ticks and ex.calls["drain_tick"] == 0
+                and st.separate_prefill_dispatches == 0
+                and not target.calls["prefill"]
+                and not draft.calls["prefill"])
+    per_bundle = n_requests * (2 if target is draft else 1)
+    return (ticks and ex.calls["entry_msgs"] == sum(st.verify_dispatches)
+            and ex.calls["stage_steps"] == ex.calls["entry_msgs"]
+            * ex.n_stages
+            and ex._consumed == ex._pushed
+            and st.separate_prefill_dispatches == n_requests
+            and all(b.calls["prefill"] == per_bundle
+                    for b in (target, draft))
+            and not _async_threads())
+
+
+def _ring_phase(phase, kind, state, *, arenas=(False, True), quant=False,
+                local=("serve-db", None), tol=None):
     """The serve-db requests (phase 3's prompts, 3 slots, arrivals 0, 0,
-    3, 6, 32 new tokens) on the 8-stage ring, dense and paged arenas:
-    tokens against phase 3's autoregressive tokens (near-tie rule);
-    tokens and per-request GenStats against the serve-db run on the same
-    arena kind (the flush also selects every token from bit-equal
-    logits; the overlapped ring may part from it only at a near-tie);
-    launch counts against the model calls and the ring's stage
-    applications; one flush per timestep with entries, or one tick per
-    timestep and no separate prefill.  Prints wall ms and launches per
-    timestep beside the serve-db run's.  Raises if a check fails."""
+    3, 6, 32 new tokens; with ``quant`` serve-db-int8's: the int8 pair, 2
+    requests on 2 slots) on the 8-stage ring of ``kind``, on each arena
+    of ``arenas``: tokens against phase 3's autoregressive tokens
+    (near-tie rule); tokens and per-request GenStats against the local
+    run ``local`` (its phase, and its arena or None for the same one);
+    the logits of every committed token against the local run's: equal
+    bits for the flush, within ``tol`` (when given) otherwise, where only
+    a near-tie may part the tokens; launch counts against the model calls
+    and the stage applications; the schedule's own checks
+    (``_executor_ok``).  The flush also equals the local run in counted
+    dequant_matmul launches.  Prints wall ms and launches per timestep
+    beside the local run's (and the async actors' counters).  Raises if a
+    check fails."""
     from repro_torch.configs import pipedec_pair
     from repro_torch.core.pipedec import PipeDecConfig
-    target, draft = state["target"], state["draft"]
+    if quant:
+        target, draft = state["target_int8"], state["draft_int8"]
+        requests, slots = _db_requests(state, DB_INT8_REQUESTS), \
+            DB_INT8_REQUESTS
+        want = state["autoregressive"]["serve-int8"]
+        paths = RING_INT8_PATHS
+    else:
+        target, draft = state["target"], state["draft"]
+        requests, slots = _db_requests(state, SERVE_REQUESTS), DB_SLOTS
+        want = state["autoregressive"]["serve"]
+        paths = RING_PATHS
     pcfg = PipeDecConfig(n_stages=8, width=8, branch=4)
-    requests = _db_requests(state, SERVE_REQUESTS)
-    want = state["autoregressive"]["serve"]
     ok = True
-    for paged in (False, True):
-        local = state["db_runs"]["serve-db", paged]
+    for paged in arenas:
+        lref = state["db_runs"][local[0],
+                                paged if local[1] is None else local[1]]
         engine, res, ex, serve_s, peak_gb, launches, expect = _ring_run(
-            kind, target, draft, requests, paged=paged, slots=DB_SLOTS,
+            kind, target, draft, requests, paged=paged, slots=slots,
             pcfg=pcfg)
         st = engine.db_stats
-        good = launches_ok(launches, expect, RING_PATHS[paged])
-        if kind == "overlap":
-            good = (good and ex.calls["pipeline_tick"] == st.timesteps
-                    and st.tick_dispatches == [1] * st.timesteps
-                    and ex.calls["drain_tick"] == 0
-                    and st.separate_prefill_dispatches == 0
-                    and not target.calls["prefill"]
-                    and not draft.calls["prefill"])
-        else:
-            good = good and ex.calls["pipeline_verify"] == sum(
-                st.verify_dispatches) == ex.calls["verify_rows"]
-        rows = []
+        good = (launches_ok(launches, expect, paths[paged])
+                and _executor_ok(kind, ex, engine, target, draft,
+                                 len(requests)))
+        if kind == "flush" and quant:
+            good = good and st.timesteps == lref["timesteps"] and \
+                launches["dequant_matmul"] == \
+                lref["launches"]["dequant_matmul"]
+        rows, worst = [], 0.0
         for uid, prompt, new, arrival in requests:
-            r, lr = res[uid], local["results"][uid]
+            r, lr = res[uid], lref["results"][uid]
             same, tie = _lossless(target, prompt, r.tokens, want[uid])
             as_local = bool((r.tokens == lr.tokens).all()) and all(
                 getattr(r.stats, k) == getattr(lr.stats, k) for k in STATS)
@@ -1978,38 +2093,58 @@ def _ring_phase(phase, kind, state):
             good = good and same and (as_local or tie is not None)
             if kind == "flush":
                 good = good and diff == 0.0
+            elif tol is not None:
+                good = good and (diff is not None and diff <= tol
+                                 or tie is not None)
+            worst = max(worst, diff or 0.0)
             rows.append({"uid": uid, "prompt_len": len(prompt),
                          "arrival_t": arrival, "latency_s": r.latency_s,
                          "acceptance": r.stats.acceptance,
                          "timesteps": r.stats.timesteps,
                          "lossless": same, "near_tie": tie,
-                         "equals_serve_db": as_local,
-                         "max_logit_diff_vs_serve_db": diff})
+                         "equals_local": as_local,
+                         "max_logit_diff_vs_local": diff})
         ok = ok and good
         n = max(st.timesteps, 1)
+        rings = state.setdefault("ring_runs", {})
+        rings[phase, paged] = {"results": res,
+                               "ms_per_timestep": 1e3 * serve_s / n}
         emit({"phase": phase, "ok": good, "mode": "pipedec-db",
-              "executor": "sharded", "overlap": kind == "overlap",
+              "executor": "async" if kind == "async" else "sharded",
+              "overlap": kind == "overlap",
               "arena": "paged" if paged else "dense",
               "page": PAGE if paged else None,
+              "quant": target.cfg.quant or "none",
               "target": target.cfg.name, "draft": draft.cfg.name,
               "reduced": {"target_layers": f"{target.cfg.num_layers} of "
                           f"{pipedec_pair.TARGET.num_layers}"},
-              "n_stages": pcfg.n_stages, "slots": DB_SLOTS,
+              "n_stages": pcfg.n_stages, "slots": slots,
               "max_len": DB_MAX_LEN,
-              "prefill_cap": ex.prefill_cap if kind == "overlap" else None,
+              "prefill_cap": getattr(ex, "prefill_cap", None),
+              "local_run": {"phase": local[0], "arena": "paged" if (
+                  paged if local[1] is None else local[1]) else "dense"},
               "timesteps": st.timesteps,
-              "serve_db_timesteps": local["timesteps"],
+              "local_timesteps": lref["timesteps"],
               "peak_occupancy": st.peak_occupancy,
               "tokens_per_timestep": st.tokens_per_timestep,
               "acceptance_rate": st.acceptance_rate,
               "serve_s": serve_s, "ms_per_timestep": 1e3 * serve_s / n,
-              "serve_db_ms_per_timestep": local["ms_per_timestep"],
+              "local_ms_per_timestep": lref["ms_per_timestep"],
+              "ring_ms_per_timestep": {
+                  f"{ph} {'paged' if pg else 'dense'}": v["ms_per_timestep"]
+                  for (ph, pg), v in rings.items() if ph != phase},
               "launches_per_timestep": sum(launches.values()) / n,
-              "serve_db_launches_per_timestep":
-                  local["launches_per_timestep"],
+              "local_launches_per_timestep": lref["launches_per_timestep"],
+              "dequant_matmul_per_timestep": launches["dequant_matmul"] / n,
+              "local_dequant_matmul_per_timestep":
+                  lref["launches"]["dequant_matmul"]
+                  / max(lref["timesteps"], 1),
+              "max_logit_diff_vs_local": worst, "logit_tol": tol,
               "ctrl_active_share": (ex.calls["ctrl_active_ticks"]
                                     / max(ex.calls["pipeline_tick"], 1)
                                     if kind == "overlap" else None),
+              "actors": _actors(ex) if kind == "async" else None,
+              "async_threads_after_shutdown": _async_threads(),
               "peak_mem_gb": peak_gb, "executor_calls": dict(ex.calls),
               "calls": {"target": dict(target.calls),
                         "draft": dict(draft.calls)},
@@ -2027,13 +2162,36 @@ def phase_serve_db_overlap(state):
     _ring_phase("serve-db-overlap", "overlap", state)
 
 
-def phase_self_draft_db_overlap(state):
-    """The 8-layer target as its own draft on the overlapped 8-stage ring,
-    paged, 3 requests on 2 slots: every prediction hits, so the ctrl
+def phase_serve_db_async(state):
+    """serve-db's requests on the async executor (dense): tokens against
+    phase 3's and serve-db-sharded's (near-tie rule), logits within 1e-4
+    of serve-db's, the actors' checks; wall ms per timestep beside the
+    flush's and the overlapped ring's."""
+    _ring_phase("serve-db-async", "async", state, arenas=(False,),
+                tol=TOL_ASYNC_LOGITS)
+    sharded = state["ring_runs"]["serve-db-sharded", False]["results"]
+    mine = state["ring_runs"]["serve-db-async", False]["results"]
+    target = state["target"]
+    ok = True
+    for uid, prompt, _, _ in _db_requests(state, SERVE_REQUESTS):
+        same, tie = _lossless(target, prompt, mine[uid].tokens,
+                              sharded[uid].tokens)
+        ok = ok and same
+    emit({"phase": "serve-db-async", "check": "tokens against "
+          "serve-db-sharded (near-tie rule)", "ok": ok})
+    if not ok:
+        raise AssertionError("serve-db-async: tokens part from "
+                             "serve-db-sharded's")
+
+
+def _self_draft_ring(phase, kind, paged, state):
+    """The 8-layer target as its own draft on the 8-stage ring of
+    ``kind``, 3 requests on 2 slots: every prediction hits, so the ctrl
     channel commits and compacts at every stage, and each retire kills.
     Per request: acceptance 1.0 and tokens equal to autoregressive
-    decoding (near-tie rule); remap_rows, ctrl-active ticks and stage
-    ctrl applications > 0; launch counts against the model calls."""
+    decoding (near-tie rule); remap_rows, ctrl and stage ctrl
+    applications > 0; the schedule's checks; launch counts against the
+    model calls."""
     from repro_torch.core.baselines import generate_autoregressive
     from repro_torch.core.pipedec import PipeDecConfig
     import numpy as np
@@ -2042,8 +2200,10 @@ def phase_self_draft_db_overlap(state):
     requests = [(uid, np.array(p), SELF_DRAFT_NEW_TOKENS, 0)
                 for uid, p in enumerate(SELF_DRAFT_DB_PROMPTS)]
     engine, res, ex, serve_s, _, launches, expect = _ring_run(
-        "overlap", target, target, requests, paged=True, slots=2, pcfg=pcfg)
-    calls = dict(target.calls)
+        kind, target, target, requests, paged=paged, slots=2, pcfg=pcfg)
+    calls = dict(target.calls)    # before the reference runs below
+    schedule_ok = _executor_ok(kind, ex, engine, target, target,
+                               len(requests))
     st = engine.db_stats
     per, ok = {}, True
     for uid, prompt, new, _ in requests:
@@ -2054,24 +2214,99 @@ def phase_self_draft_db_overlap(state):
                     "tokens_per_timestep": g.tokens_per_timestep,
                     "lossless": same, "near_tie": tie}
         ok = ok and same and g.acceptance == 1.0
-    ok = (ok and ex.calls["remap_rows"] > 0
-          and ex.calls["ctrl_active_ticks"] > 0
+    ctrl = ex.calls["ctrl_active_ticks" if kind == "overlap"
+                    else "ctrl_msgs"]
+    ok = (ok and ex.calls["remap_rows"] > 0 and ctrl > 0
           and ex.calls["stage_ctrl"] > 0 and ex.calls["kill"] >= 3
-          and ex.calls["pipeline_tick"] == st.timesteps
-          and launches_ok(launches, expect, RING_PATHS[True]))
-    emit({"phase": "self-draft-db-overlap", "ok": ok, "arena": "paged",
+          and schedule_ok and launches_ok(launches, expect,
+                                          RING_PATHS[paged]))
+    emit({"phase": phase, "ok": ok, "arena": "paged" if paged else "dense",
+          "executor": "async" if kind == "async" else "sharded",
           "n_stages": pcfg.n_stages, "slots": 2, "per_request": per,
           "timesteps": st.timesteps, "peak_occupancy": st.peak_occupancy,
           "ms_per_timestep": 1e3 * serve_s / max(st.timesteps, 1),
-          "ctrl_active_share": ex.calls["ctrl_active_ticks"]
-          / max(ex.calls["pipeline_tick"], 1),
+          "ctrl_active_share": (ex.calls["ctrl_active_ticks"]
+                                / max(ex.calls["pipeline_tick"], 1)
+                                if kind == "overlap" else None),
+          "actors": _actors(ex) if kind == "async" else None,
           "executor_calls": dict(ex.calls), "calls": calls,
           "launches": launches, "expected_launches": expect,
           "wall_s": serve_s})
     if not ok:
-        raise AssertionError("self-draft-db-overlap: lossless tokens, "
-                             "acceptance 1.0, ctrl commits and compacts, "
-                             "kills and launches as expected are required")
+        raise AssertionError(f"{phase}: lossless tokens, acceptance 1.0, "
+                             "ctrl commits and compacts, kills, the "
+                             "schedule's checks and launches as expected "
+                             "are required")
+
+
+def phase_self_draft_db_overlap(state):
+    _self_draft_ring("self-draft-db-overlap", "overlap", True, state)
+
+
+def phase_self_draft_db_async(state):
+    _self_draft_ring("self-draft-db-async", "async", False, state)
+
+
+def phase_serve_db_int8_sharded(state):
+    """serve-db-int8's requests on the int8 flush ring, dense and paged:
+    tokens, GenStats and every committed token's logits equal to
+    serve-db-int8's (the local executor on the paged arena: the paged
+    kernels equal the dense ones bit for bit), and its counted
+    dequant_matmul launches."""
+    _ring_phase("serve-db-int8-sharded", "flush", state, quant=True,
+                local=("serve-db-int8", True))
+
+
+def phase_serve_db_int8_overlap(state):
+    """serve-db-int8's requests on the int8 overlapped ring and the int8
+    async executor (dense): tokens equal to serve-db-int8's (near-tie
+    rule), logits within the int8 parity tolerance."""
+    failed = []
+    for phase, kind in (("serve-db-int8-overlap", "overlap"),
+                        ("serve-db-int8-async", "async")):
+        try:
+            _ring_phase(phase, kind, state, arenas=(False,), quant=True,
+                        local=("serve-db-int8", True), tol=TOL_INT8_RING)
+        except AssertionError:
+            failed.append(phase)
+    if failed:
+        raise AssertionError(f"{failed} failed: see their lines")
+
+
+def phase_sharded_check(state):
+    """The port's sharded_check at 8 stages in processes of its own: the
+    overlapped, async and int8 legs, then the paged one; each must print
+    SHARDED_CHECK ok."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    legs = (("--overlap", "--async", "--quant"),
+            ("--overlap", "--paged", "--quant"))
+    t0 = time.perf_counter()
+    # the legs are host-bound (tiny models): both run at once
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sharded_check",
+         "--stages", "8", *flags], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for flags in legs]
+    ok = True
+    for flags, proc in zip(legs, procs):
+        try:
+            out, err = proc.communicate(timeout=SHARDED_CHECK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = out.strip().splitlines()
+        status = lines[-1] if lines else ""
+        good = proc.returncode == 0 and status.startswith(
+            "SHARDED_CHECK ok stages=8")
+        ok = ok and good
+        emit({"phase": "sharded-check", "flags": " ".join(flags),
+              "ok": good, "rc": proc.returncode, "status": status,
+              "wall_s": time.perf_counter() - t0,
+              "summary": json.loads(lines[-2]) if good else None,
+              "stderr_tail": None if good else err[-3000:]})
+    if not ok:
+        raise AssertionError("sharded-check failed: see its lines")
 
 
 # ---------------------------------------------------------------------------
@@ -2537,6 +2772,11 @@ CLI_RUNS = (  # (mode flags, --quant, the kernels that run on that path)
     (("--mode", "pipedec-db", "--executor", "sharded"), "none", FP32_PATH),
     (("--mode", "pipedec-db", "--executor", "sharded", "--overlap"), "none",
      FP32_PATH),
+    (("--mode", "pipedec-db", "--executor", "async"), "none", FP32_PATH),
+    (("--mode", "pipedec-db", "--executor", "sharded"), "int8", INT8_PATH),
+    (("--mode", "pipedec-db", "--executor", "sharded", "--overlap"), "int8",
+     INT8_PATH),
+    (("--mode", "pipedec-db", "--executor", "async"), "int8", INT8_PATH),
     (("--mode", "pp"), "int8", ("flash_attention_lse int8",
                                 "dequant_matmul")),
     (("--mode", "pipedec"), "int8", INT8_PATH),
@@ -2709,6 +2949,8 @@ def main() -> int:
                         ("serve-db-overlap", phase_serve_db_overlap),
                         ("self-draft-db-overlap",
                          phase_self_draft_db_overlap),
+                        ("serve-db-async", phase_serve_db_async),
+                        ("self-draft-db-async", phase_self_draft_db_async),
                         ("stpp", phase_stpp),
                         ("self-draft-stpp", phase_self_draft_stpp),
                         ("chain", phase_chain),
@@ -2718,7 +2960,12 @@ def main() -> int:
                         ("stpp-int8", phase_stpp_int8),
                         ("self-draft-int8", phase_self_draft_int8),
                         ("serve-db-int8", phase_serve_db_int8),
-                        ("cli", phase_cli)):
+                        ("serve-db-int8-sharded",
+                         phase_serve_db_int8_sharded),
+                        ("serve-db-int8-overlap",
+                         phase_serve_db_int8_overlap),
+                        ("cli", phase_cli),
+                        ("sharded-check", phase_sharded_check)):
         t0 = time.perf_counter()
         try:
             phase(state)

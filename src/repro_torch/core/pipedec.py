@@ -269,6 +269,10 @@ class PipeDecEngine:
         rows_valid = nidx >= 0
         if not rows_valid.any():
             return
+        if hasattr(dlog, "resolve"):
+            # the async executor's draft verify is a future of the draft
+            # actor: expansion is the first reader of its logits
+            dlog = dlog.resolve()
         # surviving rows, in (compacted) index order, line up with the
         # deepest layer's slots
         order = np.argsort(np.where(rows_valid, nidx,

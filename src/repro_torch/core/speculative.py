@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import tree as tree_lib
+from repro_torch.counting import bump
 from repro_torch.kernels.quant import quantize_weight
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import Transformer
@@ -64,7 +65,8 @@ def select_token(logits: torch.Tensor, sp: SamplingParams,
 class ModelBundle:
     """A model plus the step functions the engines drive.
 
-    ``calls`` counts prefill / decode / tree_verify / commit calls by name.
+    ``calls`` counts prefill / decode / tree_verify / commit calls by name,
+    exactly when several threads call (``counting.bump``).
     """
 
     def __init__(self, model: Transformer):
@@ -79,25 +81,25 @@ class ModelBundle:
 
     def prefill(self, tokens, cache):
         """(last-position logits [B,V], cache) for prompts [B,S]."""
-        self.calls["prefill"] += 1
+        bump(self.calls, "prefill")
         return tf.prefill(self.model, tokens, cache)
 
     def prefill_chunk(self, tokens, cache, chunk_start, *, on=None):
         """(logits [B,s,V], cache) for one prompt chunk per row at
         ``chunk_start`` (``transformer.prefill_chunk``)."""
-        self.calls["prefill_chunk"] += 1
+        bump(self.calls, "prefill_chunk")
         return tf.prefill_chunk(self.model, tokens, cache, chunk_start,
                                 on=on)
 
     def decode(self, token, cache, cache_len):
         """(logits [B,V], cache) for one token per row at ``cache_len``."""
-        self.calls["decode"] += 1
+        bump(self.calls, "decode")
         return tf.decode_step(self.model, token, cache, cache_len)
 
     def tree_verify(self, node_tokens, node_positions, tree_mask, cache,
                     cache_len, tree_caches, tree_write_index):
         """(logits [B,n,V], tree_caches) for one tree layer per row."""
-        self.calls["tree_verify"] += 1
+        bump(self.calls, "tree_verify")
         return tf.tree_verify_step(self.model, node_tokens, node_positions,
                                    tree_mask, cache, cache_len, tree_caches,
                                    tree_write_index)
@@ -112,7 +114,7 @@ class ModelBundle:
         into views (paged leaves into table slices over their pools) and
         reach the layers as they are, so the tree rows land in the arena
         in place.  Returns (logits [bucket,n,V], tree_caches)."""
-        self.calls["tree_verify_rows"] += 1
+        bump(self.calls, "tree_verify_rows")
         logits, _ = tf.tree_verify_step(
             self.model, node_tokens, node_positions, tree_mask,
             tf.slice_cache_rows(cache, 0, bucket), cache_len,
@@ -121,14 +123,14 @@ class ModelBundle:
 
     def commit(self, cache, tree_caches, node_idx: int, model_len: int):
         """Move tree row ``node_idx`` into the model cache at ``model_len``."""
-        self.calls["commit"] += 1
+        bump(self.calls, "commit")
         return tf.commit_tree_node(cache, tree_caches, node_idx, model_len)
 
     def commit_rows(self, cache, tree_caches, node_idx, model_len,
                     commit_mask):
         """Batched per-row two-level cache sync over slot-stacked arenas
         (rows whose ``commit_mask`` is False stay bit-unchanged)."""
-        self.calls["commit_rows"] += 1
+        bump(self.calls, "commit_rows")
         return tf.commit_tree_nodes(cache, tree_caches, node_idx, model_len,
                                     commit_mask)
 

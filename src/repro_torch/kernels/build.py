@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
@@ -25,8 +26,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Loaded launch functions by symbol.  A loaded shared library lives as
-# long as the process, so this cache is process-wide by nature.
+# long as the process, so this cache is process-wide by nature.  The lock
+# makes the first use from several threads at once (the async executor's
+# actors) build and load each library once.
 _LAUNCHERS: Dict[str, ctypes._CFuncPtr] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _digest(name: str) -> str:
@@ -97,29 +101,37 @@ def launcher(name: str, argtypes: Sequence,
     symbol = symbol or f"{name}_launch"
     fn = _LAUNCHERS.get(symbol)
     if fn is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _LAUNCHERS[symbol] = fn
+        with _LOAD_LOCK:
+            fn = _LAUNCHERS.get(symbol)
+            if fn is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                fn = getattr(lib, symbol)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _LAUNCHERS[symbol] = fn
     return fn
 
 
 # Each kernel's device scratch (partial sums and per-tile counters) by
-# (kernel, device).  It only grows, is never freed, and the counters are
-# zero between calls (the kernels reset them), so a CUDA graph that
-# captured a launch keeps valid buffers as long as no later call of the
-# same kernel needs more.
+# (kernel, device, stream).  It only grows, is never freed, and the
+# counters are zero between calls (the kernels reset them), so a CUDA
+# graph that captured a launch keeps valid buffers as long as no later
+# call of the same kernel needs more; a kernel warmed up on the capture
+# stream allocates nothing inside the capture.  Launches on one stream run
+# in order and may share a scratch; launches on two streams may run at
+# once (the async executor's stage actors), so each stream has its own.
 _SCRATCH: Dict[tuple, tuple] = {}
 
 
 def scratch(name: str, device, floats: int, ints: int):
-    """(work fp32, counters int32) on ``device`` for kernel ``name``, with
-    at least ``floats`` and ``ints`` elements; counters start at zero."""
+    """(work fp32, counters int32) on ``device`` for kernel ``name`` on
+    the current stream, with at least ``floats`` and ``ints`` elements;
+    counters start at zero."""
     import torch
     key = (name, device.index if device.index is not None
-           else torch.cuda.current_device())
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream(device).cuda_stream)
     work, count = _SCRATCH.get(key, (None, None))
     if work is None or work.numel() < floats:
         work = torch.empty(max(floats, 1), dtype=torch.float32, device=device)

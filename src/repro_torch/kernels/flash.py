@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.counting import bump_attr
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -271,9 +272,9 @@ def _launch(q, k, v, kv_len, qpos, *, scale, window, causal, k_scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention_lse", err)
     if int8:
-        flash_attention_lse.launches_int8 += 1
+        bump_attr(flash_attention_lse, "launches_int8")
     else:
-        flash_attention_lse.launches += 1
+        bump_attr(flash_attention_lse, "launches")
     return o, m, l
 
 

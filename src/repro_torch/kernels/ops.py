@@ -36,7 +36,7 @@ from repro_torch.kernels.quant import dequant_matmul
 from repro_torch.kernels.tree_block import combine_lse, tree_block_attention
 
 __all__ = ["combine_lse", "tree_attention", "decode_attention",
-           "prefill_attention", "paged_tree_attention",
+           "prefill_attention", "chunk_attention", "paged_tree_attention",
            "paged_decode_attention", "dequant_matmul", "quant_matmul"]
 
 
@@ -116,6 +116,22 @@ def prefill_attention(q, k, v, positions, *, scale: Optional[float] = None,
     with ``k_scale``/``v_scale`` [B,KV,S] when given), positions [S] or
     [B,S].  Returns [B,H,S,hd]."""
     o, _, _ = flash_attention_lse(q, k, v, k.shape[2], positions,
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  scale=scale, window=window, causal=True)
+    return o.to(q.dtype)
+
+
+def chunk_attention(q, k, v, kv_len, positions, *,
+                    scale: Optional[float] = None, window: int = 0,
+                    k_scale=None, v_scale=None):
+    """Causal attention of a prompt chunk over a cache that already holds
+    the chunk's rows (chunked prefill): q [B,H,n,hd] at ``positions``
+    [B,n]; k/v [B,KV,L,hd] (int8 with ``k_scale``/``v_scale`` [B,KV,L])
+    with ``kv_len`` [B] rows written; each query attends the keys at or
+    before its position.  A query's chunks are those a one-shot causal
+    prefill of the prompt gives it (``flash.chunk_plan``: the bound is
+    its own position).  Returns [B,H,n,hd]."""
+    o, _, _ = flash_attention_lse(q, k, v, kv_len, positions,
                                   k_scale=k_scale, v_scale=v_scale,
                                   scale=scale, window=window, causal=True)
     return o.to(q.dtype)

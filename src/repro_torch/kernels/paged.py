@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.counting import bump_attr
 from repro_torch.kernels import build
 from repro_torch.kernels import flash, tree_block
 from repro_torch.kernels.flash import (check_kv, flash_attention_lse_plain,
@@ -157,9 +158,9 @@ def _launch_flash(q, k_pool, v_pool, table, kv_len, qpos, *, scale, window,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(name, err)
     if int8:
-        paged_flash_attention_lse.launches_int8 += 1
+        bump_attr(paged_flash_attention_lse, "launches_int8")
     else:
-        paged_flash_attention_lse.launches += 1
+        bump_attr(paged_flash_attention_lse, "launches")
     return o, m, l
 
 
@@ -213,9 +214,9 @@ def _launch_tree(q, k_pool, v_pool, table, mask, *, scale, k_scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(name, err)
     if int8:
-        paged_tree_block_attention.launches_int8 += 1
+        bump_attr(paged_tree_block_attention, "launches_int8")
     else:
-        paged_tree_block_attention.launches += 1
+        bump_attr(paged_tree_block_attention, "launches")
     return o if past is not None else (o, m, l)
 
 

@@ -45,6 +45,7 @@ import ctypes
 
 import torch
 
+from repro_torch.counting import bump_attr
 from repro_torch.kernels import build
 
 Q_MAX = 127.0
@@ -179,7 +180,7 @@ def _launch(x, w_q, w_scale):
              m, k, n, splits, chunk,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check("dequant_matmul", err)
-    dequant_matmul.launches += 1
+    bump_attr(dequant_matmul, "launches")
     return out
 
 

@@ -45,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.counting import bump_attr
 from repro_torch.kernels import build
 from repro_torch.kernels.flash import (MIN_L, check_kv, dequant_kv,
                                        masked_softmax_lse, scale_args)
@@ -198,9 +199,9 @@ def _launch(q, k_tree, v_tree, mask, *, scale, k_scale, v_scale, past):
              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check("tree_block_attention", err)
     if int8:
-        tree_block_attention.launches_int8 += 1
+        bump_attr(tree_block_attention, "launches_int8")
     else:
-        tree_block_attention.launches += 1
+        bump_attr(tree_block_attention, "launches")
     return o if past is not None else (o, m, l)
 
 

@@ -27,10 +27,15 @@ runs them on the 8-stage ring instead (``ShardedPipelineExecutor``, one
 flush per timestep), and ``--overlap`` on the overlapped ring
 (``OverlappedShardedExecutor``, one tick per timestep, prefill in the
 ring; its warm-up also covers the requests' joining ticks).
+``--executor async`` runs them on the free-running stage actors
+(``AsyncPipelineExecutor``, dense arena only) and adds an ``actors`` line:
+each stage actor's busy and idle seconds of its host thread per timestep
+over the plainly timed window, its largest inbox depth, and the draft's
+largest lead.  ``--quant int8`` composes with every executor.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       [--quant int8] [--mode pipedec-db [--paged]
-      [--executor sharded [--overlap]]]
+      [--executor sharded [--overlap] | --executor async]]
 """
 from __future__ import annotations
 
@@ -54,7 +59,7 @@ from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, tree_block
 from repro_torch.models import transformer as tf
-from repro_torch.serving import (LocalFusedExecutor,
+from repro_torch.serving import (AsyncPipelineExecutor, LocalFusedExecutor,
                                  OverlappedShardedExecutor, Request,
                                  ShardedPipelineExecutor, SpecPipeDBEngine)
 
@@ -110,10 +115,10 @@ def main(argv=None) -> None:
                     default="pipedec")
     ap.add_argument("--paged", action="store_true",
                     help="pipedec-db: the block-paged arena (16-row pages)")
-    ap.add_argument("--executor", choices=["local", "sharded"],
+    ap.add_argument("--executor", choices=["local", "sharded", "async"],
                     default="local",
-                    help="pipedec-db: the local fused executor or the "
-                         "8-stage ring")
+                    help="pipedec-db: the local fused executor, the "
+                         "8-stage ring or its free-running stage actors")
     ap.add_argument("--overlap", action="store_true",
                     help="--executor sharded: one ring tick per timestep")
     args = ap.parse_args(argv)
@@ -122,6 +127,8 @@ def main(argv=None) -> None:
         ap.error("--paged and --executor need --mode pipedec-db")
     if args.overlap and args.executor != "sharded":
         ap.error("--overlap needs --executor sharded")
+    if args.paged and args.executor == "async":
+        ap.error("--executor async has no paged arena")
 
     dev = resolve_device("cuda")
     tcfg = dataclasses.replace(pipedec_pair.TARGET,
@@ -149,7 +156,9 @@ def main(argv=None) -> None:
         kw = dict(slots=DB_SLOTS, max_len=MAX_LEN,
                   tree_capacity=pcfg.tree_buffer_capacity,
                   capacity=pcfg.capacity, paged=args.paged)
-        if args.executor == "sharded":
+        if args.executor == "async":
+            ex = AsyncPipelineExecutor(target, draft, n_stages=STAGES, **kw)
+        elif args.executor == "sharded":
             cls = (OverlappedShardedExecutor if args.overlap
                    else ShardedPipelineExecutor)
             ex = cls(target, draft, n_stages=STAGES, **kw)
@@ -170,11 +179,14 @@ def main(argv=None) -> None:
         step()
     torch.cuda.synchronize()
 
+    actors = args.executor == "async"
+    before = ex.counters() if actors else None
     t0 = time.perf_counter()
     for _ in range(STEPS):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    after = ex.counters() if actors else None
 
     with _combine_lse_span(), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -221,6 +233,16 @@ def main(argv=None) -> None:
                "ms_per_step": us / 1e3 / STEPS,
                "calls_per_step": count / STEPS,
                "us_per_call": us / count})
+    if actors:
+        _emit({"profile": "actors", "steps": STEPS, "stages": [
+            {"stage": k,
+             "busy_ms_per_step": 1e3 * (a["busy_s"] - b["busy_s"]) / STEPS,
+             "idle_ms_per_step": 1e3 * (a["idle_s"] - b["idle_s"]) / STEPS,
+             "max_depth": a["max_depth"]}
+            for k, (b, a) in enumerate(zip(before["stages"],
+                                           after["stages"]))],
+            "max_draft_lead": after["max_draft_lead"]})
+        ex.shutdown()
     Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(args.trace)
 

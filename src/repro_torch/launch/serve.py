@@ -17,11 +17,15 @@ executor, whose paged tree verify runs the paged attention kernels;
 ``--executor sharded`` runs the target on the ``--stages``-stage ring
 (``launch.pipeline``), one flush of the ring per timestep, and with
 ``--overlap`` one ring tick per timestep (the paper's steady state, with
-admission prefill in the ring).  ``--executor async`` and int8 bundles on
-the ring are not ported.  ``-h`` lists the flags.
+admission prefill in the ring).  ``--executor async`` runs the stages as
+free-running actors with the draft on an actor of its own
+(``AsyncPipelineExecutor``; no ``--paged``), and shuts them down at the
+end.  ``--quant int8`` serves every executor.  ``-h`` lists the flags.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pipedec-db \
       --executor sharded --overlap --stages 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pipedec-db \
+      --executor async --quant int8
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from repro_torch.core.pipedec import PipeDecConfig
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.serving import (LocalFusedExecutor,
+from repro_torch.serving import (AsyncPipelineExecutor, LocalFusedExecutor,
                                  OverlappedShardedExecutor, Request, Result,
                                  ServingEngine, ShardedPipelineExecutor)
 
@@ -64,8 +68,9 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     ap.add_argument("--executor", choices=["local", "sharded", "async"],
                     default="local",
                     help="pipedec-db compute backend: local (fused, one "
-                         "device) or sharded (the target on the "
-                         "--stages-stage ring; async is not ported)")
+                         "device), sharded (the target on the "
+                         "--stages-stage ring) or async (free-running "
+                         "stage actors and a draft actor)")
     ap.add_argument("--overlap", action="store_true",
                     help="sharded executor only: one ring tick per "
                          "timestep with deferred exit logits and prefill "
@@ -92,16 +97,13 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
     args = ap.parse_args(argv)
     if args.paged and args.mode != "pipedec-db":
         ap.error("--paged needs --mode pipedec-db")
-    if args.executor == "async":
-        ap.error("--executor async (free-running stage actors) is not "
-                 "ported: ROADMAP.md queue 1 item 11b, the next slice")
-    if args.executor == "sharded" and args.mode != "pipedec-db":
-        ap.error("--executor sharded needs --mode pipedec-db")
+    if args.executor != "local" and args.mode != "pipedec-db":
+        ap.error(f"--executor {args.executor} needs --mode pipedec-db")
     if args.overlap and args.executor != "sharded":
         ap.error("--overlap needs --mode pipedec-db --executor sharded")
-    if args.executor == "sharded" and args.quant == "int8":
-        ap.error("--quant int8 is not served on the pipeline ring: "
-                 "ROADMAP.md queue 1 item 11b")
+    if args.executor == "async" and args.paged:
+        ap.error("--executor async has no paged arena: use --executor "
+                 "sharded --paged")
 
     target = build_bundle("pipedec-target", seed=0, device=args.device)
     draft = None
@@ -119,7 +121,11 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
                   tree_capacity=pcfg.tree_buffer_capacity,
                   capacity=pcfg.capacity, paged=args.paged,
                   page=args.page_size)
-        if args.executor == "sharded":
+        if args.executor == "async":
+            kw.pop("page")
+            executor = AsyncPipelineExecutor(target, draft,
+                                             n_stages=args.stages, **kw)
+        elif args.executor == "sharded":
             cls = (OverlappedShardedExecutor if args.overlap
                    else ShardedPipelineExecutor)
             executor = cls(target, draft, n_stages=args.stages, **kw)
@@ -133,7 +139,11 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
         prompt = rng.integers(0, target.cfg.vocab_size,
                               size=8).astype(np.int64)
         engine.submit(Request(uid, prompt, args.new_tokens))
-    results = engine.run()
+    try:
+        results = engine.run()
+    finally:
+        if args.executor == "async" and executor is not None:
+            executor.shutdown()
     for uid, res in sorted(results.items()):
         extra = ""
         if res.stats is not None:

@@ -19,8 +19,10 @@ attends in plain PyTorch under autograd (``attn_train``), as the JAX
 package's training forward attends in plain ``jnp``: ``gqa_attend`` under
 a causal mask, or ``chunked_causal_attend`` from
 ``CHUNKED_ATTN_THRESHOLD`` keys on.  The pipeline ring's chunked prefill
-(``attn_prefill_chunk``) also attends through ``gqa_attend``, as the
-reference's does, outside its kernels.
+(``attn_prefill_chunk``) attends through the flash kernel too, over the
+cache rows earlier chunks wrote (the reference attends there in plain
+``jnp``): a chunk's queries get the key chunks a one-shot causal prefill
+gives them (``flash.chunk_plan``).
 
 A cache leaf may also be block-paged (``models.paging.Paged``: a row pool
 behind a per-slot block table, the SpecPipe-DB paged arena).  Then decode
@@ -46,7 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.quant import dequantize_rows, quantize_rows
+from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (QuantWeight, apply_rope, dense_init_,
@@ -320,18 +322,6 @@ def attn_train(p: Attention, cfg: ModelConfig, x, positions, *,
     return _out(p, out)
 
 
-def _kv_read(cache, name: str):
-    """K or V of a whole cache as dense fp32 [B, L, KV, hd]: a paged leaf
-    gathered through its table, an int8 one dequantized with its row
-    scales (the reference's ``_kv_read``)."""
-    def dense(buf):
-        return paging.to_dense(buf) if paging.is_paged(buf) else buf
-    if "k_scale" in cache:
-        return dequantize_rows(dense(cache[name]),
-                               dense(cache[name + "_scale"]))
-    return dense(cache[name])
-
-
 def attn_prefill_chunk(p: Attention, cfg: ModelConfig, x, positions, cache,
                        chunk_start: Sequence[int], *, window: int = 0,
                        on=None):
@@ -342,21 +332,25 @@ def attn_prefill_chunk(p: Attention, cfg: ModelConfig, x, positions, cache,
     ``= chunk_start[b] + i`` (host ints).  The chunk's K/V rows are
     written into the cache first (rows past the cache's end dropped, batch
     rows whose ``on[b]`` is False left untouched), then the queries attend
-    decode-style over the whole cache with the bound ``kpos <= position``,
-    in plain PyTorch (``gqa_attend``), as the reference does: chunk c sees
-    the rows earlier chunks wrote, so streaming a prompt in chunks caches
-    the rows a one-chunk pass caches.  Returns (out [B,s,d], cache)."""
+    causally over the cache's rows [0, chunk_start[b] + s) through the
+    flash kernel (``ops.chunk_attention``, int8 K/V in its int8 mode):
+    chunk c sees the rows earlier chunks wrote, so streaming a prompt in
+    chunks caches the rows a one-chunk pass caches.  The cache is dense:
+    the ring densifies a paged arena around its ticks.  Returns (out
+    [B,s,d], cache)."""
+    if paging.is_paged(cache["k"]):
+        raise ValueError("attn_prefill_chunk takes a dense cache: densify "
+                         "a paged arena first (paging.densify)")
     q, k, v = project_qkv(p, cfg, x, positions)
     cache_write_rows(cache, kv_updates(cache, k, v), chunk_start, on=on,
                      drop=True)
-    keys = _kv_read(cache, "k")
-    kpos = torch.arange(keys.shape[1], device=x.device)[None, None, None]
-    qpos = positions[:, None, :, None]
-    valid = kpos <= qpos
-    if window:
-        valid &= kpos > qpos - window
-    out = gqa_attend(q, keys, _kv_read(cache, "v"), valid)
-    return _out(p, out), cache
+    s, length = x.shape[1], cache["k"].shape[1]
+    kv_len = torch.tensor([min(int(c) + s, length) for c in chunk_start],
+                          dtype=torch.int32, device=x.device)
+    out = ops.chunk_attention(_heads_first(q), _heads_first(cache["k"]),
+                              _heads_first(cache["v"]), kv_len, positions,
+                              window=window, **_scales(cache))
+    return _out(p, _heads_first(out)), cache
 
 
 def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,

@@ -36,12 +36,17 @@ request waits as *joining* until its prompt's last chunk exits
 ``n_stages - 1`` ticks after entering, and its ``DecodeState`` is seeded
 from the resolved logits.
 
+The async executor (``serving.executor.AsyncPipelineExecutor``) runs
+the same overlapped schedule on free-running stage actors: a timestep
+pushes its entry and ctrl into the pipe (nothing when there is nothing to
+push) and a flight's future blocks until its exit arrives.  It has no
+prefill lane (``prefill_cap`` 0), so a request is admitted through
+``executor.prefill`` and goes active at once; admission rides the ring
+only on an overlapped executor with ``prefill_cap > 0``.
+
 ``run(on_token=...)`` streams ``(uid, token, timestep)`` as tokens are
 committed (the admission timestep for the prefill token); the streamed
 prefix always equals the final ``Result.tokens``.
-
-Not ported: the reference's asynchronous schedule
-(``AsyncPipelineExecutor``, ``ROADMAP.md`` queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -95,7 +100,7 @@ class DBStats:
     ``accepted`` / ``proposed`` count verify decisions per uid (a hit
     accepts the drafted node).  ``separate_prefill_dispatches`` counts
     admissions prefilled by ``executor.prefill`` instead of the ring's
-    prefill lane (0 on an overlapped executor).
+    prefill lane (0 on an overlapped executor with a prefill lane).
     ``page_counters`` traces the paged arena's pool counters per timestep
     (empty on a dense arena)."""
     timesteps: int = 0
@@ -412,6 +417,8 @@ class SpecPipeDBEngine:
         results = self.results
         active: Dict[int, _Active] = {}
         joining: Dict[int, _Joining] = {}
+        ring_prefill = self.overlapped and \
+            getattr(self.executor, "prefill_cap", 0) > 0
         guard = self._timestep_guard()
         now = 0
         while self.sched.pending or active or joining:
@@ -435,14 +442,14 @@ class SpecPipeDBEngine:
                 st.tree = None
                 active[slot] = _Active(j.req, st, j.t0)
 
-            # 1. refill: join-on-prefill of arrived requests (on the
-            # overlapped executor the prompt enters the ring's prefill
-            # lane with the next tick and the request waits as joining)
+            # 1. refill: join-on-prefill of arrived requests (on an
+            # overlapped executor with a prefill lane the prompt enters it
+            # with the next tick and the request waits as joining)
             for req, slot in self.sched.admit(now):
                 kw = dict(seed=request_seed(seed, req.uid),
                           eos=self.eos_token,
                           sampling=getattr(req, "sampling", None))
-                if self.overlapped:
+                if ring_prefill:
                     h = self.executor.begin_prefill(slot, req.prompt)
                     joining[slot] = _Joining(req, kw["seed"], h,
                                              time.perf_counter())

@@ -1,7 +1,7 @@
 """Compute backends for SpecPipe-DB, the executor seam: the port of the
 JAX package's ``repro/serving/executor.py`` (``PipelineExecutor``,
-``LocalFusedExecutor``, ``ShardedPipelineExecutor`` and
-``OverlappedShardedExecutor``).
+``LocalFusedExecutor``, ``ShardedPipelineExecutor``,
+``OverlappedShardedExecutor`` and ``AsyncPipelineExecutor``).
 
 The engine (``serving.dynbatch.SpecPipeDBEngine``) decides *what* every
 request computes; an executor decides *where and how* a timestep's batched
@@ -46,6 +46,13 @@ Backends:
     prefill lane (``begin_prefill``, ``PREFILL_LANE``-token chunks).
     Committed tokens equal the flush
     backend's: only *when* logits materialise changes.
+  * ``AsyncPipelineExecutor`` - the host lockstep broken: one free-running
+    actor thread per stage pulls messages (tree layers, ctrl, admission
+    scatters) from a bounded inbox, applies the same stage functions and
+    pushes them on; the draft runs on an actor of its own, ahead of the
+    target's in-flight verifies.  A kill stops a stale layer at whatever
+    stage it sits.  On the card each actor launches on a CUDA stream of
+    its own, ordered by events that ride the messages.
 
 On one card the stages share the device, so the sharded backends give no
 extra device; they run the paper's schedule.  Their arenas are dense
@@ -55,9 +62,9 @@ static identity block table (``_full_table``), densified around the ring
 as the reference does: the target's ring runs the dense kernels, the draft
 the local path's kernels on its own (paged) arena.  The reference's
 ``donate=`` has no counterpart: the port's buffers are updated in place
-already.  The int8 bundles (``--quant int8``) and the reference's
-``AsyncPipelineExecutor`` are not ported to the ring (``ROADMAP.md``
-queue 1 item 11b).
+already.  Every backend serves int8 bundles (``ModelBundle.quantize()``):
+the stage functions run the int8 projections and attention modes, and the
+cache helpers move each ``k_scale``/``v_scale`` leaf with its int8 rows.
 
 ``calls`` counts ``verify_rows`` (one draft verify per timestep with
 pending entries), ``commit_rows`` and ``remap_rows``; the sharded
@@ -66,16 +73,25 @@ backends add ``pipeline_verify`` (one flush per timestep with entries) or
 ``drain_tick``, ``kill``, ``prefill_in_ring``/``prefill_chunks`` and the
 ring's stage counts (``launch.pipeline``: ``stage_apply``,
 ``stage_layers``, ``stage_ctrl``, ``stage_prefill``, ``prefill_layers``).
+The async backend counts ``stage_steps``, ``entry_msgs``, ``ctrl_msgs``,
+``stale_exits``, ``kill``, ``pipeline_tick`` and ``drain`` as the
+reference does, plus ``stage_layers`` and ``stage_ctrl``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import queue
+import threading
+import time
+import traceback
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.speculative import ModelBundle
+from repro_torch.counting import bump
 from repro_torch.launch import pipeline as pl
 from repro_torch.models import paging
 from repro_torch.models import transformer as tf
@@ -284,10 +300,6 @@ class ShardedPipelineExecutor(PipelineExecutor):
                  capacity: int, n_stages: int, paged: bool = False,
                  page: int = 16):
         super().__init__(slots)
-        if target.cfg.quant or draft.cfg.quant:
-            raise NotImplementedError(
-                "int8 bundles are not served on the pipeline ring: "
-                "ROADMAP.md queue 1 item 11b")
         width = tree_capacity - capacity
         if width < 1:
             raise ValueError("tree_capacity must include the width-w slack")
@@ -430,6 +442,52 @@ class Deferred:
 
 
 PREFILL_LANE = 64      # tokens of a prompt chunk in the ring's prefill lane
+INBOX_DEPTH = 8        # messages a stage actor's inbox holds (async pipe)
+
+
+class _CtrlQueue:
+    """The target-side cache change queued for the next ctrl message of a
+    ring: the exit commits (mask and committed length) and prune index
+    maps the engine issued since the last message, merged per slot (a
+    later commit's length and a later remap win).  ``active`` says whether
+    anything was queued; ``drop(slot)`` cancels a retired slot's share and
+    marks it for clearing (``clear``, read by the lockstep tick)."""
+
+    def __init__(self, slots: int, capacity: int):
+        self.identity = np.tile(np.arange(capacity, dtype=np.int64),
+                                (slots, 1))
+        self.reset()
+
+    def reset(self) -> None:
+        slots = self.identity.shape[0]
+        self.commit = np.zeros((slots,), bool)
+        self.len = np.zeros((slots,), np.int64)
+        self.imap = self.identity.copy()
+        self.clear = np.zeros((slots,), bool)
+        self.active = False
+
+    def commit_rows(self, model_len, commit_mask) -> None:
+        mask = np.asarray(commit_mask, bool)
+        self.commit |= mask
+        self.len = np.where(mask, np.asarray(model_len).astype(np.int64),
+                            self.len)
+        if mask.any():
+            self.active = True
+
+    def remap_row(self, slot: int, index_map) -> None:
+        self.imap[slot] = np.asarray(index_map, np.int64)
+        self.active = True
+
+    def remap_rows(self, index_maps, row_mask) -> None:
+        self.imap = np.where(np.asarray(row_mask, bool)[:, None],
+                             np.asarray(index_maps, np.int64), self.imap)
+        self.active = True
+
+    def drop(self, slot: int) -> None:
+        self.commit[slot] = False
+        self.len[slot] = 0
+        self.imap[slot] = self.identity[slot]
+        self.clear[slot] = True
 
 
 class OverlappedShardedExecutor(ShardedPipelineExecutor):
@@ -486,10 +544,8 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
         # last one)
         self._p_queue: dict = {}
         self._p_exits: dict = {}
-        self._identity_imap = np.tile(np.arange(capacity, dtype=np.int64),
-                                      (slots, 1))
+        self._ctrlq = _CtrlQueue(slots, capacity)
         self._kill_mask = np.zeros((slots,), bool)
-        self._reset_ctrl()
         self._reset_prefill()
         w = self.plcfg.width
         self.dead_entry = (
@@ -498,13 +554,6 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
             torch.zeros((slots, w, tree_capacity), dtype=torch.bool),
             np.zeros((slots,), np.int64),                        # model_len
             np.full((slots,), capacity, np.int64))               # write_idx
-
-    def _reset_ctrl(self) -> None:
-        self._ctrl_commit = np.zeros((self.slots,), bool)
-        self._ctrl_len = np.zeros((self.slots,), np.int64)
-        self._ctrl_imap = self._identity_imap.copy()
-        self._ctrl_clear = np.zeros((self.slots,), bool)
-        self._ctrl_active = False
 
     def _reset_prefill(self) -> None:
         self._p_tokens = np.zeros((self.slots, self.prefill_cap), np.int64)
@@ -550,7 +599,8 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
                        write_idx, row_on, counter: str) -> None:
         """One tick (taking the queued ctrl, kill and prefill chunks), then
         resolve the futures of every layer and prompt that exited."""
-        ctrl_active = self._ctrl_active
+        cq = self._ctrlq
+        ctrl_active = cq.active
         model = self.target.model
         dev = self.target.device
         mkv, tkv = paging.densify(self.t_cache), paging.densify(self.t_tree)
@@ -559,8 +609,8 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
         if row_on.any():
             entry = self._entry(tokens, positions, masks, model_len,
                                 write_idx, row_on, self._versions)
-        ctrl = {"commit": self._ctrl_commit, "commit_len": self._ctrl_len,
-                "index_map": self._ctrl_imap, "clear": self._ctrl_clear,
+        ctrl = {"commit": cq.commit, "commit_len": cq.len,
+                "index_map": cq.imap, "clear": cq.clear,
                 "active": ctrl_active}
         pentry = None
         if self._p_on.any():
@@ -586,7 +636,7 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
             # drain ticks are counted apart: the active share prices the
             # steady state only
             self.calls["ctrl_active_ticks"] += 1
-        self._reset_ctrl()
+        cq.reset()
         self._reset_prefill()
         self._kill_mask[:] = False
         # the lane is free again: each streaming prompt's next chunk
@@ -651,20 +701,14 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
     def commit_rows(self, model_len, commit_mask) -> None:
         """Queue the target's exit commit as the next tick's ctrl message;
         the draft commits at once."""
-        mask = np.asarray(commit_mask, bool)
-        ml = np.asarray(model_len).astype(np.int64)
-        self._ctrl_commit |= mask
-        self._ctrl_len = np.where(mask, ml, self._ctrl_len)
-        if mask.any():
-            self._ctrl_active = True
+        self._ctrlq.commit_rows(model_len, commit_mask)
         self.draft.commit_rows(self.d_cache, self.d_tree,
                                np.zeros((self.slots,), np.int32), model_len,
                                commit_mask)
         self.calls["commit_rows"] += 1
 
     def remap_row(self, slot: int, index_map) -> None:
-        self._ctrl_imap[slot] = np.asarray(index_map, np.int64)
-        self._ctrl_active = True
+        self._ctrlq.remap_row(slot, index_map)
         self._draft_remap_row(slot, index_map)
 
     def remap_rows(self, index_maps, row_mask) -> None:
@@ -672,8 +716,7 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
         if not rm.any():
             return
         imaps = np.asarray(index_maps, np.int64)
-        self._ctrl_imap = np.where(rm[:, None], imaps, self._ctrl_imap)
-        self._ctrl_active = True
+        self._ctrlq.remap_rows(imaps, rm)
         tf.remap_tree_cache_rows(self.d_tree, imaps)
         self.calls["remap_rows"] += 1
 
@@ -701,10 +744,7 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
         self._p_queue.pop(slot, None)
         self._p_exits.pop(slot, None)
         if drop_ctrl:
-            self._ctrl_commit[slot] = False
-            self._ctrl_len[slot] = 0
-            self._ctrl_imap[slot] = self._identity_imap[slot]
-            self._ctrl_clear[slot] = True
+            self._ctrlq.drop(slot)
         self.calls["kill"] += 1
 
     def drain(self) -> int:
@@ -721,3 +761,727 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
             self._dispatch_tick(*self.dead_entry, row_on, "drain_tick")
             n += 1
         return n
+
+
+# ---------------------------------------------------------------------------
+# free-running stage actors and a disaggregated draft actor
+# ---------------------------------------------------------------------------
+class AsyncExecutorError(RuntimeError):
+    """An actor of ``AsyncPipelineExecutor`` raised (its traceback is in
+    the message), or the host timed out waiting on the pipe.  Raised on
+    the host thread by every blocking call of the executor, so a failed
+    actor never hangs the engine."""
+
+
+class _Abort(Exception):
+    """Another actor failed: unwind this one quietly."""
+
+
+def _on_stream(stream):
+    """The calling thread's launches go to ``stream`` (None: the CPU, no
+    stream).  The current stream is per thread, so each actor enters its
+    own inside its loop."""
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
+
+def _mark(stream):
+    """A CUDA event recorded on ``stream`` behind every launch queued on
+    it so far (None on the CPU)."""
+    if stream is None:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(stream)
+    return ev
+
+
+def _adopt(event, tensors) -> None:
+    """Make the calling thread's current stream wait for ``event`` (the
+    producer's launches) before its next launch, and tell the caching
+    allocator that ``tensors`` are in use on this stream too, so that the
+    producer dropping them cannot free them early.  A no-op on the CPU."""
+    if event is None:
+        return
+    cur = torch.cuda.current_stream()
+    cur.wait_event(event)
+    for t in tensors:
+        if t is not None:
+            t.record_stream(cur)
+
+
+class _AsyncDeferred(Deferred):
+    """A ``Deferred`` whose ``resolve`` pumps the exit queue: the async
+    pipe delivers an exit whenever the last stage finishes, so the engine
+    blocks here (bounded by ``timeout_s``, raising actor errors) until
+    this flight's exit has been consumed."""
+
+    __slots__ = ("_ex",)
+
+    def __init__(self, slot: int, version: int, ex):
+        super().__init__(slot, version)
+        self._ex = ex
+
+    def resolve(self):
+        while self._value is None and not self.dead:
+            self._ex._pump()
+        return super().resolve()
+
+
+class _DraftVerifyResult:
+    """Future of one timestep's batched draft proposal logits ([bucket, w,
+    V]), filled by the draft actor.  Indexing gives a slot's row as a
+    ``resolve()``-able future, which ``PipeDecEngine.maybe_expand``
+    resolves when it expands the tree."""
+
+    __slots__ = ("_ex", "_event", "_value", "_cuda_event", "_adopted")
+
+    def __init__(self, ex):
+        self._ex = ex
+        self._event = threading.Event()
+        self._value = None
+        self._cuda_event = None
+        self._adopted = False
+
+    def __getitem__(self, slot: int):
+        return _DeferredDraftRow(self, int(slot))
+
+    def wait(self):
+        deadline = time.monotonic() + self._ex.timeout_s
+        while not self._event.wait(0.05):
+            self._ex._check_errors()
+            if time.monotonic() > deadline:
+                raise AsyncExecutorError(
+                    f"timed out after {self._ex.timeout_s}s waiting for the "
+                    "draft actor's verify")
+        if not self._adopted:   # the host reads after the draft's launches
+            _adopt(self._cuda_event, (self._value,))
+            self._adopted = True
+        return self._value
+
+
+class _DeferredDraftRow:
+    """One slot's row of a pending draft verify ([w, V] once resolved)."""
+
+    __slots__ = ("_all", "slot")
+
+    def __init__(self, all_, slot: int):
+        self._all, self.slot = all_, slot
+
+    def resolve(self):
+        return self._all.wait()[self.slot]
+
+
+class AsyncPipelineExecutor(PipelineExecutor):
+    """Free-running stage actors and a disaggregated draft actor: the
+    overlapped schedule without the host lockstep.
+
+    Stage ``k`` is a daemon thread (``async-stage-k``) that takes messages
+    from its bounded inbox (``INBOX_DEPTH``), applies the stage functions
+    of ``launch.pipeline.make_stage_fns`` (the ones the lockstep tick
+    runs) to its own slice of the per-layer caches (``split_stages``, no
+    copy) and pushes the message to stage ``k + 1``; stage 0 embeds, and
+    the last stage unembeds exits into an unbounded exit queue that the
+    engine's thread consumes.  The draft lives on an actor of its own
+    (``async-draft``) that owns the draft's caches and applies verify,
+    commit, remap, remap_row and prefill jobs in the order the engine
+    pushed them, so speculation runs ahead of the target's in-flight
+    verifies (``draft_lead()``).
+
+    Messages, one sequence through every stage in order:
+
+      * ``layer`` - the entering tree layer over every slot row: tokens
+        and per-row metadata with a per-slot tree-version snapshot.  Each
+        stage decides a row's liveness (snapshot == current version) when
+        it *processes* the message, so a ``kill`` stops a stale layer at
+        whatever stage it sits, not a ring revolution later.
+      * ``ctrl`` - pruning propagation: exit commit and prune index map
+        with a ctrl-version snapshot, pushed before the next layer, so
+        each stage sees the lockstep schedule's order.  A retire
+        (``kill(drop_ctrl=True)``) bumps the slot's ctrl version and
+        neutralises its messages still riding; a miss does not.
+      * ``scatter`` - admission: the host prefills the target into a fresh
+        cache (``prefill_cap`` is 0: no prefill lane) and its rows ride
+        the pipe as one message, landing at each stage after the retired
+        occupant's stale messages.
+      * ``stop`` - shutdown.
+
+    On the card each actor launches on a ``torch.cuda.Stream`` of its own.
+    A message carries an event recorded on its producer's stream after its
+    launches; the consumer's stream waits for it before its first launch,
+    and every tensor that crosses streams is ``record_stream``-ed on the
+    consumer's, so the caching allocator cannot hand it out early.  The
+    host waits on an exit's (or the draft verify's) event before the
+    engine reads its logits.  Cache buffers are written in place and each
+    belongs to one actor.  On the CPU there are no streams or events and
+    the code is otherwise the same.
+
+    Greedy tokens equal the lockstep executors': each stage processes one
+    global message sequence in order, as the lockstep schedule does, with
+    the same stage functions on the same rows, and a stale layer that a
+    kill stops earlier (or later) than the lockstep kill mask would only
+    write rows a live tree rewrites before attending.
+
+    Failures: an actor's exception is recorded, stops the other actors
+    and re-raises on the host as ``AsyncExecutorError`` from every
+    blocking call within ``timeout_s``.  ``shutdown()`` drains, stops and
+    joins every actor (idempotent; a later use restarts them).  There is
+    no paged arena: ``paged=True`` is refused.  ``pause()``/``resume()``
+    hold the stage actors before their next message (a test hook)."""
+
+    overlapped = True     # the engine drives the deferred-logits schedule
+    prefill_cap = 0       # admission uses the separate-dispatch prefill
+
+    def __init__(self, target: ModelBundle, draft: ModelBundle, *,
+                 slots: int, max_len: int, tree_capacity: int,
+                 capacity: int, n_stages: int, paged: bool = False,
+                 timeout_s: float = 180.0):
+        super().__init__(slots)
+        if paged:
+            raise ValueError("AsyncPipelineExecutor has no paged arena: "
+                             "serve paged caches on the lockstep ring "
+                             "(ShardedPipelineExecutor, paged=True)")
+        width = tree_capacity - capacity
+        if width < 1:
+            raise ValueError("tree_capacity must include the width-w slack")
+        self.target, self.draft = target, draft
+        self.capacity, self.max_len = capacity, max_len
+        self.n_stages = int(n_stages)
+        self.timeout_s = float(timeout_s)
+        self.paged = False
+        self.plcfg = pl.PipelineConfig(n_stages=self.n_stages, width=width,
+                                       tree_capacity=capacity,
+                                       max_len=max_len)
+        self.device = target.device
+        self.arena = SlotPool(slots)
+        self.stage_layers, self.stage_valid = pl.stage_params(
+            target.model, self.n_stages)
+        # the per-layer caches, grouped by stage: stage k's lists belong to
+        # actor k, the draft's caches to the draft actor
+        self.t_cache = target.init_cache(slots, max_len)
+        self.t_tree = target.init_tree_caches(slots, tree_capacity)
+        self._kv = pl.split_stages(self.t_cache, self.n_stages)
+        self._tkv = pl.split_stages(self.t_tree, self.n_stages)
+        self.d_cache = draft.init_cache(slots, max_len)
+        self.d_tree = draft.init_tree_caches(slots, tree_capacity)
+        self._apply, self._ctrl, _ = pl.make_stage_fns(target.cfg,
+                                                       self.plcfg)
+        cuda = self.device.type == "cuda"
+        # one stream per stage actor and one for the draft actor
+        self._streams = [torch.cuda.Stream(device=self.device) if cuda
+                         else None for _ in range(self.n_stages + 1)]
+
+        # per-slot versions: layer staleness (bumped on every kill) and
+        # ctrl staleness (bumped only when a retire drops its ctrl)
+        self._versions = np.zeros((slots,), np.int64)
+        self._ctrl_versions = np.zeros((slots,), np.int64)
+        self._handles = [collections.deque() for _ in range(slots)]
+        self._ctrlq = _CtrlQueue(slots, capacity)
+        self.dead_entry = (
+            np.zeros((slots, width), np.int64),                  # tokens
+            np.zeros((slots, width), np.int64),                  # positions
+            np.zeros((slots, width, tree_capacity), bool),       # masks
+            np.zeros((slots,), np.int64),                        # model_len
+            np.full((slots,), capacity, np.int64))               # write_idx
+
+        # actor plumbing (the threads start on first use)
+        self._inboxes = [queue.Queue(maxsize=INBOX_DEPTH)
+                         for _ in range(self.n_stages)]
+        self._exit_q: queue.Queue = queue.Queue()
+        self._draft_q: queue.Queue = queue.Queue()
+        self._errors: list = []
+        self._failed = threading.Event()
+        self._gate = threading.Event()       # pause()/resume()
+        self._gate.set()
+        self._threads: list = []
+        self._started = False
+        self._seq = 0
+        self._pushed = self._consumed = 0
+        self._draft_pushed = self._draft_done = 0
+        self._draft_verified = 0
+        self._exit_layers_consumed = 0
+        self._max_draft_lead = 0
+        self.stage_counters = [
+            {"msgs": 0, "layers": 0, "stale_rows": 0, "ctrl_applied": 0,
+             "ctrl_skipped": 0, "busy_s": 0.0, "idle_s": 0.0,
+             "max_depth": 0}
+            for _ in range(self.n_stages)]
+
+    # -- small helpers ----------------------------------------------------
+    def _count(self, key: str, n: int = 1) -> None:
+        bump(self.calls, key, n)
+
+    def _next_seq(self) -> int:
+        self._seq += 1
+        return self._seq
+
+    def _host_stream(self):
+        return (torch.cuda.current_stream(self.device)
+                if self.device.type == "cuda" else None)
+
+    # -- host side: errors, feeding and consuming -------------------------
+    def _check_errors(self) -> None:
+        if self._errors:
+            who, tb = self._errors[0]
+            raise AsyncExecutorError(
+                f"async pipeline actor '{who}' failed:\n{tb}")
+
+    def _push(self, msg) -> None:
+        """Feed stage 0's bounded inbox (bounded wait, raising actor
+        errors)."""
+        self._ensure_started()
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            self._check_errors()
+            try:
+                self._inboxes[0].put(msg, timeout=0.1)
+                break
+            except queue.Full:
+                if time.monotonic() > deadline:
+                    raise AsyncExecutorError(
+                        f"timed out after {self.timeout_s}s feeding the "
+                        "stage-0 inbox (pipe stalled)")
+        self._pushed += 1
+
+    def _pump(self) -> None:
+        """Consume one message from the exit queue (bounded wait, raising
+        actor errors): the only consumer, on the engine's thread, so the
+        futures' bookkeeping is single-threaded."""
+        deadline = time.monotonic() + self.timeout_s
+        while True:
+            self._check_errors()
+            try:
+                msg = self._exit_q.get(timeout=0.1)
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise AsyncExecutorError(
+                        f"timed out after {self.timeout_s}s waiting for a "
+                        "pipeline exit")
+                continue
+            self._consume_exit(msg)
+            return
+
+    def _pump_ready(self) -> None:
+        """Consume whatever exits have arrived (no wait)."""
+        while True:
+            try:
+                msg = self._exit_q.get_nowait()
+            except queue.Empty:
+                return
+            self._consume_exit(msg)
+
+    def _consume_exit(self, msg) -> None:
+        self._consumed += 1
+        if msg[0] != "exit_layer":
+            return                      # ctrl and scatter pass through
+        _, _seq, logits, row_on, versions, event = msg
+        self._exit_layers_consumed += 1
+        _adopt(event, (logits,))
+        for slot in np.nonzero(row_on)[0]:
+            s = int(slot)
+            if versions[s] != self._versions[s]:
+                # killed after it entered: its future is dead already;
+                # dropping the logits is the lockstep exit mask's job here
+                self._count("stale_exits")
+                continue
+            q = self._handles[s]
+            if not q:
+                raise AsyncExecutorError(
+                    f"ring exit for slot {s} with no outstanding flight")
+            h = q.popleft()
+            if h.version != int(versions[s]):
+                raise AsyncExecutorError(
+                    f"tree-version mismatch at ring exit: slot {s} entered "
+                    f"at version {h.version}, exited carrying "
+                    f"{int(versions[s])}")
+            h._value = logits[s]
+
+    # -- actor side: bounded, abort-aware queue operations ----------------
+    def _aget(self, q):
+        while True:
+            if self._failed.is_set():
+                raise _Abort
+            try:
+                return q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+
+    def _aput(self, q, msg) -> None:
+        while True:
+            if self._failed.is_set():
+                raise _Abort
+            try:
+                q.put(msg, timeout=0.2)
+                return
+            except queue.Full:
+                continue
+
+    def _wait_gate(self) -> None:
+        while not self._gate.wait(0.2):
+            if self._failed.is_set():
+                raise _Abort
+
+    def pause(self) -> None:
+        """Test hook: hold every stage actor before its next message."""
+        self._gate.clear()
+
+    def resume(self) -> None:
+        self._gate.set()
+
+    # -- the actors ---------------------------------------------------------
+    def _ensure_started(self) -> None:
+        if self._started:
+            return
+        if self.device.type == "cuda":
+            # the caches were zeroed on the host's stream
+            torch.cuda.synchronize(self.device)
+        self._started = True
+        self._threads = []
+        for k in range(self.n_stages):
+            t = threading.Thread(target=self._stage_loop, args=(k,),
+                                 name=f"async-stage-{k}", daemon=True)
+            t.start()
+            self._threads.append(t)
+        t = threading.Thread(target=self._draft_loop, name="async-draft",
+                             daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _fail(self, who: str) -> None:
+        self._errors.append((who, traceback.format_exc()))
+        self._failed.set()
+
+    def _stage_loop(self, k: int) -> None:
+        ctr = self.stage_counters[k]
+        inbox = self._inboxes[k]
+        out = (self._inboxes[k + 1] if k + 1 < self.n_stages
+               else self._exit_q)
+        try:
+            with torch.no_grad(), _on_stream(self._streams[k]):
+                while True:
+                    t_idle = time.perf_counter()
+                    msg = self._aget(inbox)
+                    ctr["idle_s"] += time.perf_counter() - t_idle
+                    ctr["max_depth"] = max(ctr["max_depth"],
+                                           inbox.qsize() + 1)
+                    self._wait_gate()
+                    t0 = time.perf_counter()
+                    kind = msg[0]
+                    if kind == "stop":
+                        self._aput(out, msg)
+                        return
+                    if kind == "layer":
+                        msg = self._stage_layer(k, ctr, msg)
+                    elif kind == "ctrl":
+                        self._stage_ctrl_msg(k, ctr, msg)
+                    elif kind == "scatter":
+                        self._stage_scatter(k, msg)
+                    ctr["msgs"] += 1
+                    ctr["busy_s"] += time.perf_counter() - t0
+                    self._aput(out, msg)
+        except _Abort:
+            pass
+        except BaseException:
+            self._fail(f"stage{k}")
+
+    def _stage_layer(self, k: int, ctr, msg):
+        (_, seq, x, positions, mask, model_len, write_idx, row_on,
+         versions, event) = msg
+        # liveness when the stage processes the layer: a kill since entry
+        # stops the stale rows here
+        live = row_on & (versions == self._versions)
+        stale = int(np.count_nonzero(row_on & ~live))
+        ctr["stale_rows"] += stale
+        if k == 0:                      # the host's arrays, embedded here
+            dev = self.device
+            x = embed(self.target.model.embed.table,
+                      torch.as_tensor(x, device=dev).long())
+            positions = torch.as_tensor(positions, device=dev).long()
+            mask = torch.as_tensor(mask, device=dev, dtype=torch.bool)
+            model_len = torch.as_tensor(model_len, device=dev).to(
+                torch.int32)
+        else:
+            _adopt(event, (x, positions, mask, model_len))
+        vrow = self.stage_valid[k]
+        if live.any() and vrow.any():
+            x = self._apply(self.stage_layers[k], vrow, self._kv[k],
+                            self._tkv[k], x, positions, mask, write_idx,
+                            model_len, live)
+            self._count("stage_layers", int(np.sum(vrow)))
+        ctr["layers"] += 1
+        self._count("stage_steps")
+        stream = self._streams[k]
+        if k == self.n_stages - 1:
+            logits = (tf._logits(self.target.model, x) if live.any()
+                      else None)
+            return ("exit_layer", seq, logits, row_on, versions,
+                    _mark(stream))
+        return ("layer", seq, x, positions, mask, model_len, write_idx,
+                row_on, versions, _mark(stream))
+
+    def _stage_ctrl_msg(self, k: int, ctr, msg) -> None:
+        _, _seq, commit_on, commit_len, imap, cvers = msg
+        # ctrl liveness when processed: only a retire bumps the ctrl
+        # version, so a recycled slot's trailing messages die mid-flight
+        # while a missed slot's finish propagating
+        live = cvers == self._ctrl_versions
+        commit_on = commit_on & live
+        identity = self._ctrlq.identity
+        imap = np.where(live[:, None], imap, identity)
+        if not commit_on.any() and np.array_equal(imap, identity):
+            ctr["ctrl_skipped"] += 1    # neutralised: the identity
+            return
+        if self.stage_valid[k].any():
+            self._ctrl(self._kv[k], self._tkv[k], commit_on,
+                       np.where(live, commit_len, 0), imap)
+            self._count("stage_ctrl")
+        ctr["ctrl_applied"] += 1
+
+    def _stage_scatter(self, k: int, msg) -> None:
+        _, _seq, slot, src, event = msg
+        rows = [c for c in src[k] if c is not None]
+        _adopt(event, [buf for c in rows for buf in c.values()])
+        for dst, s in zip(self._kv[k], src[k]):
+            if dst is not None:
+                for name, buf in dst.items():
+                    buf[slot:slot + 1].copy_(s[name])
+
+    def _draft_loop(self) -> None:
+        try:
+            with torch.no_grad(), _on_stream(self._streams[-1]):
+                while True:
+                    job = self._aget(self._draft_q)
+                    kind = job[0]
+                    if kind == "stop":
+                        return
+                    if kind == "verify":
+                        self._draft_verify_job(job)
+                    elif kind == "commit":
+                        _, ml, mask = job
+                        self.draft.commit_rows(
+                            self.d_cache, self.d_tree,
+                            np.zeros((self.slots,), np.int32), ml, mask)
+                    elif kind == "remap":
+                        tf.remap_tree_cache_rows(self.d_tree, job[1])
+                    elif kind == "remap_row":
+                        _, slot, imap = job
+                        tf.remap_tree_cache_rows(
+                            tf.slice_cache_rows(self.d_tree, slot, 1),
+                            imap[None])
+                    elif kind == "prefill":
+                        _, slot, prompt = job
+                        self.draft.prefill(
+                            prompt, tf.slice_cache_rows(self.d_cache, slot,
+                                                        1))
+                    self._draft_done += 1
+        except _Abort:
+            pass
+        except BaseException:
+            self._fail("draft")
+
+    def _draft_verify_job(self, job) -> None:
+        _, tokens, positions, masks, model_len, write_idx, row_on, box = job
+        nb = self._rows_on(row_on)
+        d_all, _ = self.draft.tree_verify_rows(
+            tokens[:nb], positions[:nb], masks[:nb], self.d_cache,
+            model_len[:nb], self.d_tree, write_idx[:nb], bucket=nb)
+        self._count("verify_rows")
+        self._draft_verified += 1
+        lead = self._draft_verified - self._exit_layers_consumed
+        self._max_draft_lead = max(self._max_draft_lead, lead)
+        box._value = d_all
+        box._cuda_event = _mark(self._streams[-1])
+        box._event.set()
+
+    def _submit_draft(self, job) -> None:
+        self._ensure_started()
+        self._draft_q.put(job)
+        self._draft_pushed += 1
+
+    # -- the seam -----------------------------------------------------------
+    def prefill(self, slot: int, prompt):
+        """Admission (no prefill lane): the target prefills a fresh cache
+        on the host's stream and its rows ride the pipe as ONE scatter
+        message, after the retired occupant's stale messages and before
+        the new occupant's first layer; the draft's prefill is a job of
+        the draft actor, in the same push order.  Returns the target's
+        last-position logits [1, V]."""
+        self._ensure_started()
+        self._check_errors()
+        cache = self.target.init_cache(1, self.max_len)
+        t_logits, _ = self.target.prefill(prompt, cache)
+        self._push(("scatter", self._next_seq(), int(slot),
+                    pl.split_stages(cache, self.n_stages),
+                    _mark(self._host_stream())))
+        self._submit_draft(("prefill", int(slot), np.array(prompt)))
+        return t_logits
+
+    def tick_rows(self, tokens, positions, masks, model_len, write_idx,
+                  row_on):
+        """One engine timestep: push the queued ctrl message (if any),
+        then the entering layer and the draft's verify job.  Returns
+        ``(d_all, handles)`` as the overlapped backend does: ``handles``
+        are blocking ``Deferred`` futures and ``d_all`` a lazy draft
+        verify (None when nothing enters).  A timestep with nothing to do
+        pushes nothing: the pipe has no dead ticks."""
+        self._ensure_started()
+        self._check_errors()
+        self._pump_ready()
+        row_on = np.array(row_on, bool)
+        cq = self._ctrlq
+        if cq.active:
+            # the message owns the arrays: reset() makes fresh ones
+            self._push(("ctrl", self._next_seq(), cq.commit, cq.len,
+                        cq.imap, self._ctrl_versions.copy()))
+            self._count("ctrl_msgs")
+            cq.reset()
+        handles, d_all = {}, None
+        if row_on.any():
+            vers = self._versions.copy()
+            for slot in np.nonzero(row_on)[0]:
+                h = _AsyncDeferred(int(slot), int(vers[slot]), self)
+                self._handles[int(slot)].append(h)
+                handles[int(slot)] = h
+            tok = np.array(tokens, np.int64)
+            pos = np.array(positions, np.int64)
+            msk = np.array(masks, bool)
+            ml = np.array(model_len, np.int64)
+            wi = np.array(write_idx, np.int64)
+            self._push(("layer", self._next_seq(), tok, pos, msk, ml, wi,
+                        row_on, vers, None))
+            self._count("entry_msgs")
+            d_all = _DraftVerifyResult(self)
+            self._submit_draft(("verify", tok, pos, msk, ml, wi, row_on,
+                                d_all))
+        self._count("pipeline_tick")
+        return d_all, handles
+
+    def commit_rows(self, model_len, commit_mask) -> None:
+        """Queue the target's exit commit into the next ctrl message (it
+        trails the in-flight layers stage by stage); the draft's commit is
+        a job in the same push order."""
+        mask = np.array(commit_mask, bool)
+        ml = np.array(model_len, np.int64)
+        self._ctrlq.commit_rows(ml, mask)
+        self._submit_draft(("commit", ml, mask))
+        self._count("commit_rows")
+
+    def remap_row(self, slot: int, index_map) -> None:
+        imap = np.array(index_map, np.int64)
+        self._ctrlq.remap_row(slot, imap)
+        self._submit_draft(("remap_row", int(slot), imap))
+
+    def remap_rows(self, index_maps, row_mask) -> None:
+        rm = np.asarray(row_mask, bool)
+        if not rm.any():
+            return
+        imaps = np.array(index_maps, np.int64)
+        self._ctrlq.remap_rows(imaps, rm)
+        self._submit_draft(("remap", imaps))
+        self._count("remap_rows")
+
+    def kill(self, slot: int, *, drop_ctrl: bool = False) -> None:
+        """Invalidate the slot's in-flight layers wherever they sit: the
+        version bump makes every stage's next liveness check stop the
+        stale rows.  Outstanding futures die; ``drop_ctrl`` (retire) also
+        cancels the slot's queued ctrl and, by the ctrl-version bump, its
+        messages still riding (a miss keeps them: its earlier commits
+        must finish propagating)."""
+        self._versions[slot] += 1
+        for h in self._handles[slot]:
+            h.dead = True
+        self._handles[slot].clear()
+        if drop_ctrl:
+            self._ctrlq.drop(slot)
+            self._ctrl_versions[slot] += 1
+        self._count("kill")
+
+    def drain(self) -> int:
+        """Block until every pushed message has left the last stage and
+        the draft actor's queue is empty (bounded, raising actor errors):
+        the pipe is idle and every future resolved.  Returns the exit
+        messages consumed here."""
+        if not self._started:
+            return 0
+        n = 0
+        while self._consumed < self._pushed:
+            self._pump()
+            n += 1
+        deadline = time.monotonic() + self.timeout_s
+        while self._draft_done < self._draft_pushed:
+            self._check_errors()
+            if time.monotonic() > deadline:
+                raise AsyncExecutorError(
+                    f"timed out after {self.timeout_s}s draining the draft "
+                    "actor")
+            time.sleep(0.002)
+        if any(self._handles):
+            raise AsyncExecutorError(
+                "drained pipe left unresolved flights: the exit and future "
+                "bookkeeping is out of step")
+        self._count("drain")
+        return n
+
+    def shutdown(self) -> None:
+        """Drain the pipe, stop the actors and join their threads
+        (idempotent; a later use starts them again).  After a failure the
+        drain is skipped and the actors are released by the abort."""
+        if not self._started:
+            return
+        self._gate.set()
+        if not self._errors:
+            try:
+                self.drain()
+            except AsyncExecutorError:
+                pass
+        stop = ("stop", self._next_seq())
+        for q in (self._inboxes[0], self._draft_q):
+            try:
+                q.put(stop, timeout=1.0)
+            except queue.Full:
+                self._failed.set()
+        deadline = time.monotonic() + min(self.timeout_s, 30.0)
+        while not self._failed.is_set():
+            try:
+                msg = self._exit_q.get(timeout=0.1)
+            except queue.Empty:
+                if self._errors or time.monotonic() > deadline:
+                    break
+                continue
+            if msg[0] == "stop":
+                break
+            self._consume_exit(msg)
+        self._failed.set()               # release any blocked actor
+        for t in self._threads:
+            t.join(timeout=10.0)
+        alive = [t.name for t in self._threads if t.is_alive()]
+        for s in self._streams:
+            if s is not None:
+                s.synchronize()
+        self._threads = []
+        self._started = False
+        self._failed = threading.Event()
+        if alive:
+            raise AsyncExecutorError(f"actor threads failed to join: "
+                                     f"{alive}")
+
+    # -- introspection --------------------------------------------------------
+    def draft_lead(self) -> int:
+        """Verify jobs the draft has completed ahead of the target exits
+        the engine has consumed: how far speculation runs ahead."""
+        return self._draft_verified - self._exit_layers_consumed
+
+    def counters(self) -> dict:
+        """The per-stage actor counters (messages, layer steps, stale rows
+        stopped, ctrl applied and skipped, busy and idle seconds of the
+        actor's thread, largest inbox depth) and the draft-lead gauges
+        and message totals."""
+        return {"stages": [dict(c) for c in self.stage_counters],
+                "draft_lead": self.draft_lead(),
+                "max_draft_lead": self._max_draft_lead,
+                "pushed": self._pushed, "consumed": self._consumed}
+
+    def _draft_cache(self):
+        return self.d_cache
+
+    def _draft_tree(self):
+        return self.d_tree

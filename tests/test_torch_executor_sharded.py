@@ -11,9 +11,10 @@ equal the local run's.  On the overlapped ring admission rides the
 prefill lane (``PREFILL_LANE`` = 64-token chunks; the prompts run up to
 150 tokens, so some stream in several chunks): the requests join
 ``n_stages - 1`` timesteps later and the prompt's cache rows come from
-the chunk attention (plain PyTorch) instead of the flash kernel's plain
-version, so there tokens, per-request stats and acceptance are held
-exactly and the logits are not compared.  The overlapped tokens are also
+the chunk attention over the cache (on the CPU the flash kernel's plain
+version over every cache row) instead of a prefill over the prompt's
+rows, so there tokens, per-request stats and acceptance are held exactly
+and the logits are not compared.  The overlapped tokens are also
 held to the JAX package's ``LocalFusedExecutor`` engine on bridged
 weights (its own sharded-executor pins fail on this JAX version).
 """
@@ -347,8 +348,8 @@ def test_generate_with_executor_b1_path(pair, kind):
 def test_slot_and_stage_counts_must_match(pair):
     """The engine refuses an executor with another slot count, and an
     overlapped one whose stage count is not ``PipeDecConfig.n_stages``
-    (the ring is the flight bookkeeping); int8 bundles are not served on
-    the ring."""
+    (the ring is the flight bookkeeping); int8 bundles are served on the
+    ring, whose caches then hold int8 rows with their scales."""
     target, _ = pair["target"]
     draft, _ = pair["draft"]
     pcfg = _pcfg(2)
@@ -359,8 +360,9 @@ def test_slot_and_stage_counts_must_match(pair):
     with pytest.raises(ValueError, match="n_stages"):
         SpecPipeDBEngine(target, draft, pcfg, max_len=MAX_LEN, max_slots=2,
                          executor=ex)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        _executor("flush", target.quantize(), draft, pcfg, 2)
+    ex = _executor("flush", target.quantize(), draft.quantize(), pcfg, 2)
+    assert sorted(ex.t_cache[0]) == ["k", "k_scale", "v", "v_scale"]
+    assert ex.t_tree[0]["k"].dtype == torch.int8
 
 
 def test_stale_flight_cannot_commit():

@@ -28,7 +28,8 @@ assert not bad, bad
 db = ["models.paging", "kernels.paged", "core.dynbatch",
       "serving.scheduler", "serving.executor", "serving.dynbatch",
       "core.baselines", "core.chain", "core.sim", "data.pipeline",
-      "optim.adamw", "launch.steps", "launch.train", "launch.pipeline"]
+      "optim.adamw", "launch.steps", "launch.train", "launch.pipeline",
+      "launch.sharded_check", "counting"]
 missing = [m for m in db if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """

@@ -86,18 +86,43 @@ def test_pp_matches_jax_serving_engine():
 
 
 def test_pipedec_db_is_not_ported(pair, capsys):
-    """What of SpecPipe-DB is not ported is refused: the asynchronous
-    pipeline executor (``--executor async``) and int8 on the stage ring
-    name their ROADMAP item, the next slice; the speculative modes need a
-    draft."""
-    for flags in (["--executor", "async"],
-                  ["--executor", "sharded", "--quant", "int8"]):
+    """What SpecPipe-DB does not serve is refused with a message: the
+    async executor has no paged arena, and the ring executors need
+    ``--mode pipedec-db``; the speculative modes need a draft."""
+    for flags, why in ((["--mode", "pipedec-db", "--executor", "async",
+                         "--paged"], "no paged arena"),
+                       (["--mode", "pipedec", "--executor", "async"],
+                        "needs --mode pipedec-db")):
         with pytest.raises(SystemExit):
-            serve.main(["--mode", "pipedec-db", "--device", "cpu", *flags])
-        assert "queue 1 item 11b" in capsys.readouterr().err
+            serve.main(["--device", "cpu", *flags])
+        assert why in capsys.readouterr().err
     for mode in ("pipedec", "pipedec-db"):
         with pytest.raises(ValueError):
             ServingEngine(pair[0], None, mode=mode)
+
+
+def test_cli_pipedec_db_async_on_cpu(capsys):
+    """``--executor async`` serves the smoke pair on free-running stage
+    actors with the single-request engine's tokens, and shuts them down:
+    no actor thread is left."""
+    import threading
+    engine = _check_cli_sharded(2, False, False, capsys, executor="async")
+    ex = engine.executor
+    assert ex.calls["stage_steps"] == ex.calls["entry_msgs"] * 2
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("async-")]
+
+
+@pytest.mark.parametrize("executor,overlap", [("sharded", False),
+                                              ("sharded", True),
+                                              ("async", False)])
+def test_cli_int8_on_the_ring_on_cpu(executor, overlap, capsys):
+    """``--quant int8`` with ``--executor sharded [--overlap]`` and
+    ``--executor async`` serves the int8 pair with the int8
+    single-request engine's tokens."""
+    engine = _check_cli_sharded(2, overlap, False, capsys,
+                                executor=executor, quant="int8")
+    assert engine.target.cfg.quant == engine.draft.cfg.quant == "int8"
 
 
 @pytest.mark.parametrize("overlap", [False, True])
@@ -118,17 +143,20 @@ def test_cli_sharded_with_a_stage_of_padding_on_cpu(overlap, capsys):
     assert not engine.executor.stage_valid[-1].any()
 
 
-def _check_cli_sharded(stages, overlap, paged, capsys):
-    argv = ["--mode", "pipedec-db", "--executor", "sharded", "--device",
+def _check_cli_sharded(stages, overlap, paged, capsys, executor="sharded",
+                       quant="none"):
+    argv = ["--mode", "pipedec-db", "--executor", executor, "--device",
             "cpu", "--requests", "3", "--new-tokens", "5", "--stages",
-            str(stages), "--slots", "2"] + \
+            str(stages), "--slots", "2", "--quant", quant] + \
         (["--overlap"] if overlap else []) + (["--paged"] if paged else [])
     engine, results = serve.main(argv)
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(results) == 3 and len(lines) == 3 and "acc=" in lines[0]
     ex = engine.executor
-    assert ex.overlapped == overlap and ex.paged == paged
-    assert ex.calls["pipeline_tick" if overlap else "pipeline_verify"] > 0
+    assert ex.overlapped == (overlap or executor == "async")
+    assert ex.paged == paged
+    assert ex.calls["pipeline_tick" if ex.overlapped
+                    else "pipeline_verify"] > 0
     single = PipeDecEngine(engine.target, engine.draft, engine.pipedec_cfg,
                            max_len=512)
     rng = np.random.default_rng(0)
