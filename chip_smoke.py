@@ -12,9 +12,10 @@ Phases, each printed as JSON objects, one per line:
                  asynchronous copies in its SASS);
   2. kernels   - each hand-written kernel, in each of its modes (fp32 and
                  int8 K/V for the attention kernels), against its plain
-                 PyTorch version on the card at the main path's shapes
-                 and at STPP's whole-tree verify (33 queries, a 41-row
-                 tree buffer with fully masked rows): max
+                 PyTorch version on the card at the main path's shapes,
+                 at STPP's whole-tree verify (33 queries, a 41-row tree
+                 buffer with fully masked rows) and, for the head_dim 256
+                 instances (the ``hd256`` rows), at Gemma-7b's: max
                  errors against the stated tolerances, kernel / plain /
                  library times (CUDA events) and the least time the card
                  could take; the dequant-matmul's M-independence (every row
@@ -28,7 +29,8 @@ Phases, each printed as JSON objects, one per line:
                  tree-verify entry point (torch.profiler);
   3. serve     - the main path: ServingEngine(mode="pipedec") over the
                  paper's pair at published widths (target cut to 8 layers,
-                 one per pipeline stage; seeded random weights), greedy
+                 one per pipeline stage, the draft to 4; 3 requests;
+                 seeded random weights), greedy
                  tokens checked against plain autoregressive decoding, and
                  the kernels' launch counts checked against the model calls;
   4. self-draft - draft = target: every tree prediction must hit;
@@ -110,10 +112,31 @@ Phases, each printed as JSON objects, one per line:
  16. cli       - ``repro_torch.launch.serve.main`` in pp, pipedec and
                  pipedec-db --paged modes, fp32 and ``--quant int8``, and
                  pipedec-db --executor sharded [--overlap] and --executor
-                 async, fp32 and int8, and the smoke pair on the card
-                 against the same weights on the CPU, fp32 and int8;
+                 async, fp32 and int8, pipedec with ``--target-arch``
+                 qwen2-moe-a2.7b and deepseek-v2-236b, and the smoke pair
+                 on the card against the same weights on the CPU, fp32
+                 and int8, and with the MoE and MLA smoke targets;
+16a. family-<arch> - the attention families at published widths
+                 (FAMILY_ARCHS: Qwen 2.5 and 1.5 and Moonlight cut to 8
+                 layers, Gemma-7b and Qwen-MoE whole, DeepSeek-V2 to 3):
+                 PipeDec (8 stages, width 8, branch 4) with a seeded
+                 2-layer dense draft on two prompts, lossless against
+                 autoregressive decoding (near-tie rule); the target as its
+                 own draft, acceptance 1.0; flash and tree launches layers
+                 x calls (Gemma's on the head_dim 256 instances, none for
+                 DeepSeek's MLA, which attends in plain PyTorch); wall ms
+                 per token and peak memory;
+16b. family-db - SpecPipe-DB (3 slots, arrivals 0, 0, 3) for Gemma,
+                 Moonlight and DeepSeek on dense and paged arenas at
+                 dropless MoE capacity: paged equals dense bit for bit,
+                 lossless; a run at the published capacity factor reports
+                 whether its tokens still equal autoregressive decoding;
+16c. family-int8 - Gemma and Qwen 2.5 after ``quantize()``: lossless
+                 against int8 autoregressive decoding, dequant_matmul
+                 launches 7 x layers x calls, Gemma's int8 attention on
+                 the head_dim 256 int8 instances;
  17. sharded-check - ``python -m repro_torch.launch.sharded_check
-                 --stages 8`` with --overlap --async --quant, then with
+                 --stages 4`` with --overlap --async --quant, then with
                  --overlap --paged --quant, each in a process of its own:
                  every executor's tokens equal the single-request
                  engine's on tiny models, with the scenarios.
@@ -155,6 +178,7 @@ or without the port's sources beside this file, it exits 1 at once.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -215,7 +239,12 @@ TOL_INT8_RING = 1e-3
 SHARDED_CHECK_TIMEOUT_S = 420
 
 TARGET_LAYERS = 8        # one layer per stage of the paper's 8-stage pipeline
-SERVE_REQUESTS = 4
+# the serving draft (LLaMA-3.2-1B, 16 layers) cut to 4 layers and the
+# serving phases to 3 requests, so that the run, with the family phases,
+# stays inside its time limit (PERF.md section 4)
+DRAFT_LAYERS = 4
+SERVE_REQUESTS = 3
+SHARDED_CHECK_STAGES = 4
 SERVE_NEW_TOKENS = 32
 SELF_DRAFT_NEW_TOKENS = 40
 # SpecPipe-DB: slots, the arrival timestep of each of phase 3's prompts (a
@@ -380,6 +409,12 @@ KERNEL_ROWS = (
      "src/repro_torch/csrc/tree_block_attention.cu",
      "src/repro/kernels/paged.py:186"),
 )
+# the head_dim 256 instances (Gemma) of the four attention kernels, fp32
+# and int8: rows of their own, with their own launch counters
+HD256 = " hd256"
+KERNEL_ROWS += tuple((name + HD256, src, replaces)
+                     for name, src, replaces in KERNEL_ROWS
+                     if "attention" in name)
 
 
 def kernel_cases(torch, dev):
@@ -412,7 +447,8 @@ def kernel_cases(torch, dev):
             qpos = torch.arange(n, device=dev).expand(b, n)
         else:   # tree-layer positions: committed prefix + depth
             qpos = (kvl.long() - 1)[:, None] + torch.arange(n, device=dev) // 2
-        row = "flash_attention_lse" + (" int8" if int8 else "")
+        row = ("flash_attention_lse" + (" int8" if int8 else "")
+               + (HD256 if hd > 128 else ""))
         return name, row, dict(q=q, **kv(b, length, kvh, hd, int8),
                                kv_len=kvl, qpos=qpos.to(torch.int32),
                                causal=causal, window=window, main=main)
@@ -423,7 +459,8 @@ def kernel_cases(torch, dev):
         if mask is None:
             mask = torch.rand(b, n, t, generator=gen, device=dev) < 0.3
             mask[:, -1] = False                       # an empty row
-        row = "tree_block_attention" + (" int8" if int8 else "")
+        row = ("tree_block_attention" + (" int8" if int8 else "")
+               + (HD256 if hd > 128 else ""))
         return name, row, dict(q=q, **kv(b, t, kvh, hd, int8), mask=mask,
                                main=main)
 
@@ -465,6 +502,22 @@ def kernel_cases(torch, dev):
                   STPP_T, mask=stpp_mask(torch, dev)),
         tree_case("tree int8/stpp target n=33 T=41", 1, 64, 8, STPP_NODES,
                   128, STPP_T, int8=True, mask=stpp_mask(torch, dev)),
+        # Gemma-7b (16 heads, 16 KV heads, head_dim 256): the head_dim 256
+        # instances at its tree-verify past half, decode and tree
+        flash_case("flash hd256/tree-past gemma B=1", 1, 16, 16, 8, 256, 512,
+                   [200], main=True),
+        flash_case("flash hd256/decode gemma", 1, 16, 16, 1, 256, 512,
+                   [200]),
+        flash_case("flash hd256/prefill causal gemma S=128", 1, 16, 16, 128,
+                   256, 128, [128], causal=True),
+        tree_case("tree hd256/gemma B=1 T=105", 1, 16, 16, 8, 256, 105,
+                  main=True),
+        flash_case("flash int8 hd256/tree-past gemma B=1", 1, 16, 16, 8, 256,
+                   512, [200], main=True, int8=True),
+        flash_case("flash int8 hd256/decode gemma", 1, 16, 16, 1, 256, 512,
+                   [200], int8=True),
+        tree_case("tree int8 hd256/gemma B=1 T=105", 1, 16, 16, 8, 256, 105,
+                  main=True, int8=True),
     ]
 
 
@@ -696,8 +749,15 @@ PAGED_CASES = (
     ("paged flash/decode target B=3", 64, 8, 128, 1, (91, 201, 131), False),
     ("paged tree/target B=3 T=105", 64, 8, 128, 8, None, True),
     ("paged tree/draft B=3 T=105", 32, 8, 64, 8, None, False),
+    ("paged flash hd256/tree-past gemma B=3", 16, 16, 256, 8,
+     (90, 200, 130), True),
+    ("paged flash hd256/decode gemma B=3", 16, 16, 256, 1, (91, 201, 131),
+     False),
+    ("paged tree hd256/gemma B=3 T=105", 16, 16, 256, 8, None, True),
 )
 PAGED_B, PAGED_T = 3, 105
+# (heads, KV heads, head_dim) of the target's attention and of Gemma-7b's
+TARGET_HEADS, GEMMA_HEADS = (64, 8, 128), (16, 16, 256)
 
 
 def _paged_pool(torch, dense, horizon, gen):
@@ -797,7 +857,7 @@ def paged_cases(torch, dev, summary):
                         q, dense["k"], dense["v"], mask, **dsc)
                 valid = mask
                 extra = 4 * b * nb + b * n * length
-            row += " int8" if int8 else ""
+            row += (" int8" if int8 else "") + (HD256 if hd > 128 else "")
             got = run()
             torch.cuda.synchronize()
             err_o, err_m, err_l = _errors(got, plain())
@@ -875,11 +935,13 @@ def merged_cases(torch, dev):
     the failed cases."""
     from repro_torch.kernels import flash, ops, paged, tree_block
     from repro_torch.kernels.quant import quantize_rows
-    h, kvh, hd = 64, 8, 128
     bad = []
-    for paged_mode, n, t, seed in ((False, 8, PAGED_T, 11),
-                                   (True, 8, PAGED_T, 11),
-                                   (False, STPP_NODES, STPP_T, 21)):
+    for paged_mode, n, t, seed, (h, kvh, hd) in (
+            (False, 8, PAGED_T, 11, TARGET_HEADS),
+            (True, 8, PAGED_T, 11, TARGET_HEADS),
+            (False, STPP_NODES, STPP_T, 21, TARGET_HEADS),
+            (False, 8, PAGED_T, 31, GEMMA_HEADS),
+            (True, 8, PAGED_T, 31, GEMMA_HEADS)):
         stpp = n == STPP_NODES
         for int8 in (False, True):
             gen = torch.Generator().manual_seed(seed + 2 * paged_mode + int8)
@@ -983,8 +1045,9 @@ def merged_cases(torch, dev):
             ok = err_halves <= TOL_MERGE and err_plain <= TOL_O_ABS
             row = {"phase": "kernels",
                    "case": ("paged " if paged_mode else "") + "merged "
-                   "tree verify target B=%d T=%d%s%s" % (
-                       b, t, " n=33 (stpp)" * stpp, " int8" * int8),
+                   "tree verify %s B=%d T=%d%s%s" % (
+                       "gemma hd256" if hd > 128 else "target", b, t,
+                       " n=33 (stpp)" * stpp, " int8" * int8),
                    "entry": "ops." + ("paged_" * paged_mode) +
                    "tree_attention",
                    "bit_equal_combine_lse": bit_equal,
@@ -1037,7 +1100,6 @@ def one_launch_cases(torch, dev):
                       f"{quant.k_split(k, n)[0]}",
                       lambda x=x, q8=q8, sc=sc: quant.dequant_matmul(
                           x, q8, sc), 1))
-    q = torch.randn(1, 64, 8, 128, generator=gen, device=dev)
     kvl = torch.tensor([200], dtype=torch.int32, device=dev)
     qpos = (199 + torch.arange(8, device=dev) // 2)[None].to(torch.int32)
     table = (1 + torch.arange(32, device=dev, dtype=torch.int32))[None]
@@ -1050,42 +1112,46 @@ def one_launch_cases(torch, dev):
         pad = x.new_zeros((-x.shape[1] % PAGE, *x.shape[2:]))
         return paging.pool_view(torch.cat([torch.zeros_like(x[0, :PAGE]),
                                            x[0], pad]), PAGE)
-    for int8 in (False, True):
+    for (h, kvh, hd), int8 in ((TARGET_HEADS, False), (TARGET_HEADS, True),
+                               (GEMMA_HEADS, False), (GEMMA_HEADS, True)):
+        q = torch.randn(1, h, 8, hd, generator=gen, device=dev)
         kv, sc, tkv, tsc = [], {}, [], {}
         for name in ("k", "v"):
             for length, xs, scs in ((512, kv, sc), (PAGED_T, tkv, tsc)):
-                x = torch.randn(1, length, 8, 128, generator=gen, device=dev)
+                x = torch.randn(1, length, kvh, hd, generator=gen,
+                                device=dev)
                 if int8:
                     x, scs[name + "_scale"] = quantize_rows(x)
                 xs.append(x)
-        mode = " int8" if int8 else ""
+        mode = (" int8" if int8 else "") + (HD256 if hd > 128 else "")
         heads = {k: v.transpose(1, 2) for k, v in sc.items()}
         theads = {k: v.transpose(1, 2) for k, v in tsc.items()}
         cases.append(("flash_attention_lse" + mode,
-                      lambda kv=kv, heads=heads: flash.flash_attention_lse(
+                      lambda q=q, kv=kv, heads=heads:
+                      flash.flash_attention_lse(
                           q, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
                           kvl, qpos, **heads), 1))
         pools = [pool(x) for x in kv]
         psc = {k: pool(v) for k, v in sc.items()}
         cases.append(("paged_flash_attention_lse" + mode,
-                      lambda pools=pools, psc=psc:
+                      lambda q=q, pools=pools, psc=psc:
                       paged.paged_flash_attention_lse(
                           q, pools[0], pools[1], table, kvl, qpos, **psc), 1))
         cases.append(("tree_block_attention" + mode,
-                      lambda tkv=tkv, theads=theads:
+                      lambda q=q, tkv=tkv, theads=theads:
                       tree_block.tree_block_attention(
                           q, tkv[0].transpose(1, 2), tkv[1].transpose(1, 2),
                           mask, **theads), 1))
         tpools = [pool(x) for x in tkv]
         tpsc = {k: pool(v) for k, v in tsc.items()}
         cases.append(("paged_tree_block_attention" + mode,
-                      lambda tpools=tpools, tpsc=tpsc:
+                      lambda q=q, tpools=tpools, tpsc=tpsc:
                       paged.paged_tree_block_attention(
                           q, tpools[0], tpools[1], t_table, mask, **tpsc), 1))
         esc = {"kt_scale": theads.get("k_scale"),
                "vt_scale": theads.get("v_scale")} if int8 else {}
         cases.append(("ops.tree_attention" + mode,
-                      lambda kv=kv, tkv=tkv, heads=heads, esc=esc:
+                      lambda q=q, kv=kv, tkv=tkv, heads=heads, esc=esc:
                       ops.tree_attention(
                           q, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
                           tkv[0].transpose(1, 2), tkv[1].transpose(1, 2),
@@ -1093,7 +1159,8 @@ def one_launch_cases(torch, dev):
         pesc = {"kt_scale": tpsc.get("k_scale"),
                 "vt_scale": tpsc.get("v_scale")} if int8 else {}
         cases.append(("ops.paged_tree_attention" + mode,
-                      lambda pools=pools, tpools=tpools, psc=psc, pesc=pesc:
+                      lambda q=q, pools=pools, tpools=tpools, psc=psc,
+                      pesc=pesc:
                       ops.paged_tree_attention(
                           q, pools[0], pools[1], table, tpools[0], tpools[1],
                           t_table, mask, kvl, qpos=qpos, **psc, **pesc), 2))
@@ -1121,7 +1188,9 @@ def _counters():
                      paged.paged_flash_attention_lse),
                     ("paged_tree_block_attention",
                      paged.paged_tree_block_attention)):
-        out += [(row, fn, "launches"), (row + " int8", fn, "launches_int8")]
+        out += [(row, fn, "launches"), (row + " int8", fn, "launches_int8"),
+                (row + HD256, fn, "launches_hd256"),
+                (row + " int8" + HD256, fn, "launches_int8_hd256")]
     return (*out, ("dequant_matmul", quant.dequant_matmul, "launches"))
 
 
@@ -1142,27 +1211,34 @@ def read_launches(*bundles, paged=False):
     bundle also launches dequant_matmul once per projection of each layer.
     A fused DB tree verify (``tree_verify_rows``) on a ``paged`` arena
     launches the paged flash and paged tree kernels instead of the dense
-    ones.  A bundle that serves as both target and draft is counted once."""
+    ones.  An MLA model (DeepSeek) attends in plain PyTorch, with no
+    launch; a model whose head_dim is over 128 (Gemma) launches the
+    head_dim 256 instances, counted in the ``hd256`` rows as well.  A
+    bundle that serves as both target and draft is counted once."""
     launches = {row: getattr(fn, attr) for row, fn, attr in _counters()}
-    expect = dict.fromkeys(launches, 0)
+    expect = collections.Counter(dict.fromkeys(launches, 0))
     uniq = {id(b): b for b in bundles if b is not None}.values()
     for b in uniq:
-        layers, calls = b.cfg.num_layers, b.calls
+        layers = 0 if b.cfg.mla is not None else b.cfg.num_layers
+        calls = b.calls
         rows = calls.get("tree_verify_rows", 0)
         trees = calls.get("tree_verify", 0) + (0 if paged else rows)
         forward = sum(calls.get(k, 0) for k in ("prefill", "decode",
                                                 "prefill_chunk")) + trees
         int8 = b.cfg.quant == "int8"
-        mode = " int8" if int8 else ""
-        expect["flash_attention_lse" + mode] += layers * forward
-        expect["tree_block_attention" + mode] += layers * trees
-        if paged:
-            expect["paged_flash_attention_lse" + mode] += layers * rows
-            expect["paged_tree_block_attention" + mode] += layers * rows
+        modes = [" int8" if int8 else ""]
+        if b.cfg.resolved_head_dim > 128:
+            modes.append(modes[0] + HD256)
+        for mode in modes:
+            expect["flash_attention_lse" + mode] += layers * forward
+            expect["tree_block_attention" + mode] += layers * trees
+            if paged:
+                expect["paged_flash_attention_lse" + mode] += layers * rows
+                expect["paged_tree_block_attention" + mode] += layers * rows
         if int8:
             expect["dequant_matmul"] += PROJECTIONS * layers * (
                 forward + (rows if paged else 0))
-    return launches, expect
+    return launches, dict(expect)
 
 
 def launches_ok(launches, expect, used):
@@ -1623,7 +1699,9 @@ def _serve(phase, state, target, draft, path, extra):
           "quant": target.cfg.quant or "none",
           "target": target.cfg.name, "draft": draft.cfg.name,
           "reduced": {"target_layers": f"{target.cfg.num_layers} of "
-                      f"{pipedec_pair.TARGET.num_layers}"},
+                      f"{pipedec_pair.TARGET.num_layers}",
+                      "draft_layers": f"{draft.cfg.num_layers} of "
+                      f"{pipedec_pair.DRAFT.num_layers}"},
           "pipedec": {"n_stages": 8, "width": 8, "branch": 4},
           "new_tokens": SERVE_NEW_TOKENS, **extra, "serve_s": serve_s,
           "autoregressive_s": ar_s,
@@ -1645,8 +1723,8 @@ def phase_serve(state):
     tcfg = dataclasses.replace(pipedec_pair.TARGET, num_layers=TARGET_LAYERS)
     t0 = time.perf_counter()
     target = ModelBundle(tf.init_model(tcfg, seed=0, device="cuda"))
-    draft = ModelBundle(tf.init_model(pipedec_pair.DRAFT, seed=1,
-                                      device="cuda"))
+    dcfg = dataclasses.replace(pipedec_pair.DRAFT, num_layers=DRAFT_LAYERS)
+    draft = ModelBundle(tf.init_model(dcfg, seed=1, device="cuda"))
     torch.cuda.synchronize()
     state["target"], state["draft"] = target, draft
     _serve("serve", state, target, draft, FP32_PATH,
@@ -1800,7 +1878,9 @@ def _db_phase(phase, state, target, draft, requests, want, path, slots,
               "quant": target.cfg.quant or "none",
               "target": target.cfg.name, "draft": draft.cfg.name,
               "reduced": {"target_layers": f"{target.cfg.num_layers} of "
-                          f"{pipedec_pair.TARGET.num_layers}"},
+                          f"{pipedec_pair.TARGET.num_layers}",
+                          "draft_layers": f"{draft.cfg.num_layers} of "
+                          f"{pipedec_pair.DRAFT.num_layers}"},
               "pipedec": {"n_stages": pcfg.n_stages, "width": pcfg.width,
                           "branch": pcfg.branch},
               "slots": slots, "max_len": DB_MAX_LEN,
@@ -2117,7 +2197,9 @@ def _ring_phase(phase, kind, state, *, arenas=(False, True), quant=False,
               "quant": target.cfg.quant or "none",
               "target": target.cfg.name, "draft": draft.cfg.name,
               "reduced": {"target_layers": f"{target.cfg.num_layers} of "
-                          f"{pipedec_pair.TARGET.num_layers}"},
+                          f"{pipedec_pair.TARGET.num_layers}",
+                          "draft_layers": f"{draft.cfg.num_layers} of "
+                          f"{pipedec_pair.DRAFT.num_layers}"},
               "n_stages": pcfg.n_stages, "slots": slots,
               "max_len": DB_MAX_LEN,
               "prefill_cap": getattr(ex, "prefill_cap", None),
@@ -2274,7 +2356,8 @@ def phase_serve_db_int8_overlap(state):
 
 
 def phase_sharded_check(state):
-    """The port's sharded_check at 8 stages in processes of its own: the
+    """The port's sharded_check at SHARDED_CHECK_STAGES stages in processes
+    of its own: the
     overlapped, async and int8 legs, then the paged one; each must print
     SHARDED_CHECK ok."""
     import os
@@ -2285,7 +2368,8 @@ def phase_sharded_check(state):
     # the legs are host-bound (tiny models): both run at once
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.sharded_check",
-         "--stages", "8", *flags], stdout=subprocess.PIPE,
+         "--stages", str(SHARDED_CHECK_STAGES), *flags],
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
         for flags in legs]
     ok = True
@@ -2298,7 +2382,7 @@ def phase_sharded_check(state):
         lines = out.strip().splitlines()
         status = lines[-1] if lines else ""
         good = proc.returncode == 0 and status.startswith(
-            "SHARDED_CHECK ok stages=8")
+            f"SHARDED_CHECK ok stages={SHARDED_CHECK_STAGES}")
         ok = ok and good
         emit({"phase": "sharded-check", "flags": " ".join(flags),
               "ok": good, "rc": proc.returncode, "status": status,
@@ -2781,22 +2865,29 @@ CLI_RUNS = (  # (mode flags, --quant, the kernels that run on that path)
                                 "dequant_matmul")),
     (("--mode", "pipedec"), "int8", INT8_PATH),
     (("--mode", "pipedec-db", "--paged"), "int8", PAGED_INT8_PATH),
+    # the MoE and MLA families at their smoke sizes with the default draft
+    (("--mode", "pipedec", "--target-arch", "qwen2-moe-a2.7b"), "none",
+     FP32_PATH),
+    (("--mode", "pipedec", "--target-arch", "deepseek-v2-236b"), "none",
+     FP32_PATH),
 )
 
 
-def _card_vs_cpu(quant, tol):
-    """The smoke pair with the same weights on the card and on the CPU
-    (int8: each quantized on its own device): prefill logits within
-    ``tol``, equal int8 weights, equal PipeDec tokens."""
+def _card_vs_cpu(quant, tol, target_arch="pipedec-target"):
+    """The smoke pair (``target_arch``'s smoke model as the target) with
+    the same weights on the card and on the CPU (int8: each quantized on
+    its own device): prefill logits within ``tol``, equal int8 weights,
+    equal PipeDec tokens."""
     import numpy as np
     import torch
-    from repro_torch.configs import pipedec_pair
+    from repro_torch.configs import get_config, pipedec_pair
     from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
     from repro_torch.core.speculative import ModelBundle
     from repro_torch.models import transformer as tf
 
     pcfg = PipeDecConfig(n_stages=4, width=8, branch=4)
-    pair = ((pipedec_pair.TARGET_SMOKE, 0), (pipedec_pair.DRAFT_SMOKE, 1))
+    pair = ((get_config(target_arch, smoke=True), 0),
+            (pipedec_pair.DRAFT_SMOKE, 1))
     cpu = [ModelBundle(tf.init_model(c, seed=s, device="cpu"))
            for c, s in pair]
     gpu = [ModelBundle(tf.init_model(c, seed=s, device="cpu").to("cuda"))
@@ -2817,6 +2908,7 @@ def _card_vs_cpu(quant, tol):
     same = bool(np.array_equal(out_cpu, out_gpu))
     good = err <= tol and same and weights_equal
     emit({"phase": "cli", "check": "card vs CPU, smoke pair, same weights",
+          "target": pair[0][0].name,
           "quant": quant, "ok": good, "prefill_logits_max_abs_err": err,
           "tol": tol, "int8_weights_equal": weights_equal,
           "pipedec_tokens_equal": same})
@@ -2826,7 +2918,6 @@ def _card_vs_cpu(quant, tol):
 def phase_cli(state):
     import gc
     import torch
-    from repro_torch.configs import pipedec_pair
     from repro_torch.launch import serve
 
     for key in ("target", "draft", "target_int8", "draft_int8"):
@@ -2847,7 +2938,7 @@ def phase_cli(state):
             paged="--paged" in flags)
         good = len(res) == 3 and all(
             len(r.tokens) == 13 and (r.tokens >= 0).all()
-            and (r.tokens < pipedec_pair.TARGET_SMOKE.vocab_size).all()
+            and (r.tokens < engine.target.cfg.vocab_size).all()
             for r in res.values())
         good = good and launches_ok(launches, expect, used)
         ok = ok and good
@@ -2862,8 +2953,372 @@ def phase_cli(state):
 
     good = _card_vs_cpu("none", 1e-4)
     good = _card_vs_cpu("int8", TOL_INT8_CARD_CPU) and good
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-236b"):
+        good = _card_vs_cpu("none", 1e-4, arch) and good
     if not (ok and good):
         raise AssertionError("cli phase failed: see its lines")
+
+
+# ---------------------------------------------------------------------------
+# phases family-*: the attention families at published widths
+# ---------------------------------------------------------------------------
+# (arch, target layers): Qwen 2.5 and 1.5 and Moonlight cut to 8 layers (a
+# layer per stage, as phase 3's target), Gemma-7b and Qwen-MoE whole, and
+# DeepSeek-V2 cut to its dense first layer and two MoE layers (15.9 GB
+# each)
+FAMILY_ARCHS = (("qwen2.5-32b", 8), ("qwen1.5-32b", 8), ("gemma-7b", 28),
+                ("moonshot-v1-16b-a3b", 8), ("qwen2-moe-a2.7b", 24),
+                ("deepseek-v2-236b", 3))
+FAMILY_PROMPT_LENS = (64, 128, 96)     # PipeDec takes the first two
+FAMILY_NEW_TOKENS = 32
+FAMILY_DB_ARCHS = ("gemma-7b", "moonshot-v1-16b-a3b", "deepseek-v2-236b")
+FAMILY_DB_ARRIVALS = (0, 0, 3)
+FAMILY_DB_NEW_TOKENS = 8
+FAMILY_INT8_ARCHS = ("gemma-7b", "qwen2.5-32b")
+FAMILY_INT8_NEW_TOKENS = 8
+FAMILY_MAX_LEN = 256
+
+
+def _family_cfgs(arch, *, dropless=False):
+    """(target, draft) configs: the arch at published widths cut to its
+    FAMILY_ARCHS depth (MoE at the published capacity factor, or at the
+    dropless one, the number of experts), and the random draft: a 2-layer
+    dense SwiGLU model (d 1024, 8 heads / 2 KV, d_ff 2816) with the
+    target's vocabulary."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ModelConfig
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=dict(FAMILY_ARCHS)[arch])
+    if dropless and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    draft = ModelConfig(name="family-draft", family="dense", num_layers=2,
+                        d_model=1024, num_heads=8, num_kv_heads=2,
+                        d_ff=2816, vocab_size=cfg.vocab_size)
+    return cfg, draft
+
+
+def _family_bundles(arch, *, dropless=False):
+    """Seeded random target and draft on the card."""
+    from repro_torch.core.speculative import ModelBundle
+    from repro_torch.models import transformer as tf
+    cfg, dcfg = _family_cfgs(arch, dropless=dropless)
+    return (ModelBundle(tf.init_model(cfg, seed=0, device="cuda")),
+            ModelBundle(tf.init_model(dcfg, seed=1, device="cuda")))
+
+
+def _share_weights(bundle, cfg):
+    """A bundle of ``cfg`` (the same shapes, another capacity factor)
+    holding ``bundle``'s weights, not a copy."""
+    from repro_torch.core.speculative import ModelBundle
+    from repro_torch.models import transformer as tf
+    model = tf.Transformer(cfg, "meta")
+    model.load_state_dict(bundle.model.state_dict(), assign=True)
+    return ModelBundle(model)
+
+
+def _family_prompts(vocab):
+    import numpy as np
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, vocab, size=n).astype(np.int64)
+            for n in FAMILY_PROMPT_LENS]
+
+
+def _family_path(cfg, int8=False):
+    """The attention kernels a family's run must launch: the draft's
+    (head_dim 128) always, and the head_dim 256 instances for Gemma."""
+    path = INT8_PATH if int8 else FP32_PATH
+    if cfg.resolved_head_dim > 128:
+        path += tuple(p + HD256 for p in path if "attention" in p)
+    return path
+
+
+def _free(*names, state=None):
+    import gc
+    import torch
+    if state is not None:
+        for key in names:
+            state.pop(key, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _autoregressive(target, prompts, new_tokens):
+    """Autoregressive tokens of each prompt and the wall ms per token."""
+    import torch
+    from repro_torch.core.baselines import generate_autoregressive
+    t0 = time.perf_counter()
+    want = [generate_autoregressive(target, p, new_tokens,
+                                    max_len=FAMILY_MAX_LEN) for p in prompts]
+    torch.cuda.synchronize()
+    return want, 1e3 * (time.perf_counter() - t0) / (len(prompts)
+                                                     * new_tokens)
+
+
+def _family_pipedec(target, draft, prompts, want, new_tokens, path):
+    """PipeDec (8 stages, width 8, branch 4) through
+    ServingEngine(mode="pipedec") on ``prompts``; tokens against ``want``
+    (near-tie rule), launch counts against the calls.  Returns (ok, row)."""
+    import torch
+    from repro_torch.core.pipedec import PipeDecConfig
+    from repro_torch.serving import Request, ServingEngine
+    engine = ServingEngine(target, draft, mode="pipedec",
+                           pipedec=PipeDecConfig(n_stages=8, width=8,
+                                                 branch=4),
+                           max_len=FAMILY_MAX_LEN)
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid, p, new_tokens))
+    zero_launches(target, draft)
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, expect = read_launches(target, draft)
+    ok = launches_ok(launches, expect, path)
+    rows = []
+    for uid, p in enumerate(prompts):
+        res = results[uid]
+        same, tie = _lossless(target, p, res.tokens, want[uid])
+        ok = ok and same
+        rows.append({"uid": uid, "prompt_len": len(p), "lossless": same,
+                     "near_tie": tie, **_gen_stats(res.stats)})
+    return ok, {"ms_per_token": 1e3 * wall_s / (len(prompts) * new_tokens),
+                "wall_s": wall_s, "launches": launches,
+                "expected_launches": expect,
+                "calls": _calls(target, draft), "requests": rows}
+
+
+def phase_family(arch):
+    """A family at published widths (FAMILY_ARCHS depth, seeded random
+    weights, fp32): PipeDec with the random draft on two prompts, lossless
+    against autoregressive decoding (near-tie rule); the target as its own
+    draft, acceptance 1.0; flash and tree launches layers x calls (0 for
+    the MLA target, which attends in plain PyTorch; Gemma's through the
+    head_dim 256 instances); wall ms per token of both and of
+    autoregressive decoding; peak memory."""
+    def run(state):
+        import torch
+        from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
+        _free("target", "draft", "target_int8", "draft_int8", state=state)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        target, draft = _family_bundles(arch)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = target.cfg
+        path = _family_path(cfg)
+        prompts = _family_prompts(cfg.vocab_size)[:2]
+        want, ar_ms = _autoregressive(target, prompts, FAMILY_NEW_TOKENS)
+        ok, rand = _family_pipedec(target, draft, prompts, want,
+                                   FAMILY_NEW_TOKENS, path)
+        if cfg.resolved_head_dim > 128:
+            state["launches"].update({k: rand["launches"][k] for k in path
+                                      if k.endswith(HD256)})
+        # the target as its own draft: every prediction hits
+        eng = PipeDecEngine(target, target, PipeDecConfig(n_stages=8,
+                                                          width=8, branch=4),
+                            max_len=FAMILY_MAX_LEN)
+        zero_launches(target)
+        t0 = time.perf_counter()
+        out, st = eng.generate(prompts[0], FAMILY_NEW_TOKENS)
+        torch.cuda.synchronize()
+        self_s = time.perf_counter() - t0
+        launches, expect = read_launches(target)
+        self_same, self_tie = _lossless(target, prompts[0], out, want[0])
+        self_ok = (st.acceptance == 1.0 and self_same
+                   and launches == expect)
+        ok = ok and self_ok
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        emit({"phase": f"family-{arch}", "ok": ok, "target": cfg.name,
+              "family": cfg.family, "draft": draft.cfg.name,
+              "reduced": {"target_layers": f"{cfg.num_layers} of "
+                          f"{_full_layers(arch)}"},
+              "head_dim": cfg.resolved_head_dim,
+              "attention": "plain PyTorch (MLA)" if cfg.mla is not None
+              else "kernels" + (" (head_dim 256 instances)"
+                                if cfg.resolved_head_dim > 128 else ""),
+              "moe": None if cfg.moe is None else {
+                  "experts": cfg.moe.num_experts,
+                  "top_k": cfg.moe.experts_per_token,
+                  "shared": cfg.moe.num_shared_experts,
+                  "first_dense": cfg.moe.first_dense,
+                  "capacity_factor": cfg.moe.capacity_factor},
+              "pipedec": {"n_stages": 8, "width": 8, "branch": 4},
+              "new_tokens": FAMILY_NEW_TOKENS, "init_s": init_s,
+              "autoregressive_ms_per_token": ar_ms,
+              "random_draft": rand,
+              "self_draft": {"ok": self_ok, "lossless": self_same,
+                             "near_tie": self_tie, "wall_s": self_s,
+                             "ms_per_token": 1e3 * self_s
+                             / FAMILY_NEW_TOKENS, **_gen_stats(st),
+                             "launches": launches,
+                             "expected_launches": expect},
+              "peak_mem_gb": peak_gb})
+        del target, draft, eng
+        _free()
+        if not ok:
+            raise AssertionError(f"family-{arch} failed: see its line")
+    return run
+
+
+def _full_layers(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch).num_layers
+
+
+def phase_family_db(state):
+    """SpecPipe-DB (3 slots, arrivals 0, 0, 3, the local executor) for
+    Gemma-7b, Moonlight and DeepSeek-V2 at FAMILY_ARCHS depth, dense and
+    paged arenas: paged equals dense bit for bit (tokens, GenStats), tokens
+    equal autoregressive decoding, launches as the calls imply.  MoE runs
+    at dropless capacity here (a batched verify routes up to 24 tokens
+    together, which the published capacity may drop, in the reference
+    too); a further dense run at the published capacity factor reports
+    whether its tokens still equal autoregressive decoding at that
+    factor."""
+    import torch
+    from repro_torch.core.pipedec import PipeDecConfig
+    pcfg = PipeDecConfig(n_stages=8, width=8, branch=4)
+    ok = True
+    for arch in FAMILY_DB_ARCHS:
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        target, draft = _family_bundles(arch, dropless=True)
+        cfg = target.cfg
+        prompts = _family_prompts(cfg.vocab_size)
+        want, _ = _autoregressive(target, prompts, FAMILY_DB_NEW_TOKENS)
+        requests = [(uid, p, FAMILY_DB_NEW_TOKENS, FAMILY_DB_ARRIVALS[uid])
+                    for uid, p in enumerate(prompts)]
+        runs = {}
+        for paged in (False, True):
+            engine, res, ex, serve_s, peak_gb, launches, expect = _db_run(
+                target, draft, requests, paged=paged, slots=DB_SLOTS,
+                pcfg=pcfg)
+            path = _family_path(cfg)
+            if paged:
+                path = ("flash_attention_lse", "paged_flash_attention_lse",
+                        "paged_tree_block_attention")
+                if cfg.resolved_head_dim > 128:
+                    path += tuple(p + HD256 for p in path)
+                    state["launches"].update(
+                        {k: launches[k] for k in path
+                         if k.startswith("paged_") and k.endswith(HD256)})
+            good = launches_ok(launches, expect, path)
+            rows = []
+            for uid, p, _, arrival in requests:
+                same, tie = _lossless(target, p, res[uid].tokens, want[uid])
+                good = good and same
+                rows.append({"uid": uid, "prompt_len": len(p),
+                             "arrival_t": arrival, "lossless": same,
+                             "near_tie": tie, **_gen_stats(res[uid].stats)})
+            runs[paged] = res
+            same_run = None
+            if paged:
+                same_run = all(
+                    (runs[True][u].tokens == runs[False][u].tokens).all()
+                    and all(getattr(runs[True][u].stats, k)
+                            == getattr(runs[False][u].stats, k)
+                            for k in STATS) for u in runs[False])
+                good = good and same_run
+            ok = ok and good
+            st = engine.db_stats
+            emit({"phase": "family-db", "ok": good, "target": cfg.name,
+                  "draft": draft.cfg.name,
+                  "reduced": {"target_layers": f"{cfg.num_layers} of "
+                              f"{_full_layers(arch)}"},
+                  "arena": "paged" if paged else "dense",
+                  "capacity_factor": (cfg.moe.capacity_factor
+                                      if cfg.moe is not None else None),
+                  "slots": DB_SLOTS, "paged_equals_dense": same_run,
+                  "timesteps": st.timesteps,
+                  "tokens_per_timestep": st.tokens_per_timestep,
+                  "ms_per_timestep": 1e3 * serve_s / max(st.timesteps, 1),
+                  "peak_mem_gb": peak_gb, "executor_calls": dict(ex.calls),
+                  "launches": launches, "expected_launches": expect,
+                  "requests": rows})
+            del engine, ex
+        if cfg.moe is not None:
+            # the published capacity factor: a report, not a check
+            pub_cfg, _ = _family_cfgs(arch)
+            pub = _share_weights(target, pub_cfg)
+            pub_want, _ = _autoregressive(pub, prompts, FAMILY_DB_NEW_TOKENS)
+            _, res, _, _, _, _, _ = _db_run(pub, draft, requests,
+                                            paged=False, slots=DB_SLOTS,
+                                            pcfg=pcfg)
+            emit({"phase": "family-db", "report": "published capacity",
+                  "target": cfg.name,
+                  "capacity_factor": pub_cfg.moe.capacity_factor,
+                  "tokens_equal_autoregressive": {
+                      uid: bool((res[uid].tokens == pub_want[uid]).all())
+                      for uid in res}})
+            del pub
+        del target, draft
+    _free()
+    if not ok:
+        raise AssertionError("family-db failed: see its lines")
+
+
+def phase_family_int8(state):
+    """Gemma-7b (whole) and Qwen 2.5 (8 layers) after ``quantize()`` of
+    target and draft on the card: PipeDec with the random draft, lossless
+    against int8 autoregressive decoding; dequant_matmul launches 7 x
+    layers x calls; Gemma's int8 attention through the head_dim 256 int8
+    instances, and, on a paged SpecPipe-DB arena (the two prompts at
+    once), through the paged ones."""
+    import torch
+    from repro_torch.core.pipedec import PipeDecConfig
+    ok = True
+    for arch in FAMILY_INT8_ARCHS:
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        target, draft = _family_bundles(arch)
+        t0 = time.perf_counter()
+        target, draft = target.quantize(), draft.quantize()
+        _free()
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        cfg = target.cfg
+        path = _family_path(cfg, int8=True)
+        prompts = _family_prompts(cfg.vocab_size)[:2]
+        want, ar_ms = _autoregressive(target, prompts,
+                                      FAMILY_INT8_NEW_TOKENS)
+        good, rand = _family_pipedec(target, draft, prompts, want,
+                                     FAMILY_INT8_NEW_TOKENS, path)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        db = None
+        if cfg.resolved_head_dim > 128:
+            state["launches"].update({k: rand["launches"][k] for k in path
+                                      if k.endswith(HD256)})
+            requests = [(uid, p, FAMILY_INT8_NEW_TOKENS, 0)
+                        for uid, p in enumerate(prompts)]
+            _, res, _, serve_s, _, launches, expect = _db_run(
+                target, draft, requests, paged=True, slots=DB_SLOTS,
+                pcfg=PipeDecConfig(n_stages=8, width=8, branch=4))
+            paged_path = tuple(p + HD256 for p in PAGED_INT8_PATH
+                               if "attention" in p)
+            db_ok = launches_ok(launches, expect,
+                                PAGED_INT8_PATH + paged_path)
+            for uid, p, _, _ in requests:
+                db_ok = db_ok and _lossless(target, p, res[uid].tokens,
+                                            want[uid])[0]
+            state["launches"].update({k: launches[k] for k in paged_path
+                                      if k.startswith("paged_")})
+            good = good and db_ok
+            db = {"ok": db_ok, "arena": "paged", "serve_s": serve_s,
+                  "launches": launches, "expected_launches": expect}
+        ok = ok and good
+        emit({"phase": "family-int8", "ok": good, "target": cfg.name,
+              "quant": "int8", "draft": draft.cfg.name,
+              "reduced": {"target_layers": f"{cfg.num_layers} of "
+                          f"{_full_layers(arch)}"},
+              "quantize_s": quantize_s,
+              "autoregressive_ms_per_token": ar_ms, "random_draft": rand,
+              "db_paged": db, "peak_mem_gb": peak_gb})
+        del target, draft
+    _free()
+    if not ok:
+        raise AssertionError("family-int8 failed: see its lines")
 
 
 # ---------------------------------------------------------------------------
@@ -2965,6 +3420,10 @@ def main() -> int:
                         ("serve-db-int8-overlap",
                          phase_serve_db_int8_overlap),
                         ("cli", phase_cli),
+                        *((f"family-{arch}", phase_family(arch))
+                          for arch, _ in FAMILY_ARCHS),
+                        ("family-db", phase_family_db),
+                        ("family-int8", phase_family_int8),
                         ("sharded-check", phase_sharded_check)):
         t0 = time.perf_counter()
         try:

@@ -2,21 +2,27 @@
 
 The source is the JAX parameter pytree as numpy arrays: from
 ``jax.device_get(init_model(...))`` or from a ``save_pytree`` ``.npz`` read
-with ``checkpoint.io.load_pytree``.  For a dense model it is
+with ``checkpoint.io.load_pytree``.  It is
 
   {"embed": {"table"}, "final_norm": {"scale"}, ["lm_head": {"table"}],
-   "stack": [{"norm1": {"scale"}, "mixer": {"w_q", "w_k", "w_v", "w_o"},
-              "norm2": {"scale"}, "ffn": {"w_gate", "w_up", "w_down"}}]}
+   ["prefix": [[sub-layer], ...]],   (a MoE config's first_dense layers)
+   "stack": [sub-layer]}             (every leaf with a leading layer axis)
 
-where every leaf under "stack" carries a leading layer axis.  The port's
-own ``init_model`` draws from the same distributions with a
+where a sub-layer is {"norm1": {"scale"}, "mixer": {...}, "norm2":
+{"scale"}, "ffn": {...}}: the mixer holds w_q, w_k, w_v, w_o (and b_q,
+b_k, b_v with QKV bias) or MLA's w_dq, w_q, w_dkv, w_kr, w_ukv, w_o; the
+ffn an MLP's w_gate (not for GELU), w_up, w_down, or MoE's router, 3-D
+w_gate/w_up/w_down and "shared" (an MLP).  Layer ``i`` of the port is
+``prefix[i]``, then ``stack[j]`` is layer ``n_prefix + j``; a port
+weight's path in its layer is the JAX key path.  The port's own
+``init_model`` draws from the same distributions with a
 ``torch.Generator`` but not the same values; only this bridge makes the
 two packages compute the same function.
 
 A quantized pytree (the JAX package's ``ModelBundle.quantize()``) holds
-each projection as ``{"q8": int8, "scale": f32}``, both with the leading
-layer axis; it fills a model of the same config with ``quant="int8"``,
-whose projections are ``QuantWeight``s, value for value.
+each projection as ``{"q8": int8, "scale": f32}``; it fills a model of
+the same config with ``quant="int8"``, whose projections are
+``QuantWeight``s, value for value (QKV biases stay fp32).
 
 ``to_jax_params`` is the reverse: the same pytree, as numpy arrays, from
 a port model (what the trainer saves as ``{"params": ...}``).
@@ -33,9 +39,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import QuantWeight
 from repro_torch.models.transformer import Transformer
 
-_LAYER_KEYS = {"norm1": ("scale",), "mixer": ("w_q", "w_k", "w_v", "w_o"),
-               "norm2": ("scale",), "ffn": ("w_gate", "w_up", "w_down")}
-
 
 def _copy(dst: torch.Tensor, src, what: str) -> None:
     arr = np.asarray(src)
@@ -49,33 +52,73 @@ def _copy(dst: torch.Tensor, src, what: str) -> None:
         dst.copy_(torch.from_numpy(np.array(arr, np.float32)))
 
 
-def _layer_leaf(dst, stacked, i: int, n_layers: int, what: str) -> None:
-    """Copy layer ``i`` of a stacked leaf (an array, or a quantized
-    ``{"q8", "scale"}`` dict) into ``dst`` (a parameter or a
-    ``QuantWeight``)."""
-    quant = isinstance(stacked, Mapping) and "q8" in stacked
+def _is_quant(x) -> bool:
+    return isinstance(x, Mapping) and "q8" in x
+
+
+def _layer_leaves(module, prefix=()):
+    """(path, weight) of every weight of a layer, by the JAX key path:
+    parameters, and ``QuantWeight``s whole (a ``{"q8", "scale"}`` leaf)."""
+    for name, p in module.named_parameters(recurse=False):
+        yield prefix + (name,), p
+    for name, child in module.named_children():
+        if isinstance(child, QuantWeight):
+            yield prefix + (name,), child
+        else:
+            yield from _layer_leaves(child, prefix + (name,))
+
+
+def _jax_paths(tree, prefix=()):
+    """Key paths of a JAX sub-layer's leaves (a quantized dict is one)."""
+    if isinstance(tree, Mapping) and not _is_quant(tree):
+        for k, v in tree.items():
+            yield from _jax_paths(v, prefix + (k,))
+    else:
+        yield prefix
+
+
+def _layer_sources(cfg: ModelConfig, params: Mapping) -> list:
+    """Per port layer, its JAX sub-layer dict and its index on the stacked
+    axis (None for an unstacked ``prefix`` layer): the reference's layout
+    is ``prefix[i]`` (the dense layers under a MoE config's
+    ``first_dense``), then ``stack[j]`` -> layer ``n_prefix + j``."""
+    n_prefix = cfg.moe.first_dense if cfg.moe is not None else 0
+    out = []
+    for i in range(n_prefix):
+        (sub,) = params["prefix"][i]
+        out.append((sub, None))
+    reps = cfg.num_layers - n_prefix
+    if reps:
+        (sub,) = params["stack"]   # one sub-layer kind per unit: attention
+        out += [(sub, j) for j in range(reps)]
+    return out
+
+
+def _fill(dst, src, j, what: str) -> None:
+    """Copy a JAX leaf (layer ``j`` of it when stacked) into ``dst``, a
+    parameter or a ``QuantWeight``."""
+    quant = _is_quant(src)
     if quant != isinstance(dst, QuantWeight):
         raise ValueError(f"{what}: an {'int8' if quant else 'fp32'} leaf "
                          f"for an {'fp32' if quant else 'int8'} weight")
-    pairs = (((dst.q8, stacked["q8"], ".q8"),
-              (dst.scale, stacked["scale"], ".scale")) if quant
-             else ((dst, stacked, ""),))
+    pairs = (((dst.q8, src["q8"], ".q8"), (dst.scale, src["scale"],
+                                            ".scale")) if quant
+             else ((dst, src, ""),))
     for tensor, arr, suffix in pairs:
-        arr = np.asarray(arr)
-        if arr.shape[0] != n_layers:
-            raise ValueError(f"stack has {arr.shape[0]} layers, config "
-                             f"{n_layers}")
-        _copy(tensor, arr[i], what + suffix)
+        _copy(tensor, np.asarray(arr) if j is None else np.asarray(arr)[j],
+              what + suffix)
 
 
 @torch.no_grad()
 def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
-    """Fill ``model`` in place from a JAX dense-model parameter pytree
+    """Fill ``model`` in place from a JAX parameter pytree of its config
     (fp32, or quantized for a ``quant="int8"`` model)."""
     cfg = model.cfg
-    extra = set(params) - {"embed", "final_norm", "lm_head", "stack"}
+    extra = set(params) - {"embed", "final_norm", "lm_head", "prefix",
+                           "stack"}
     if extra:
-        raise ValueError(f"not a dense-model pytree: extra keys {extra}")
+        raise ValueError(f"not a decoder pytree of the port's families: "
+                         f"extra keys {extra}")
     if ("lm_head" in params) == cfg.tie_embeddings:
         raise ValueError("lm_head presence does not match tie_embeddings")
     _copy(model.embed.table, params["embed"]["table"], "embed.table")
@@ -84,14 +127,39 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
     if model.lm_head is not None:
         _copy(model.lm_head.table, params["lm_head"]["table"],
               "lm_head.table")
-    (unit,) = params["stack"]   # one sub-layer kind per unit: attention
-    for i, layer in enumerate(model.layers):
-        for part, names in _LAYER_KEYS.items():
-            mod = getattr(layer, part)
-            for name in names:
-                _layer_leaf(getattr(mod, name), unit[part][name], i,
-                            cfg.num_layers, f"layers[{i}].{part}.{name}")
+    if "stack" in params:
+        (sub,) = params["stack"]
+        n = np.asarray(next(iter(_leaf_arrays(sub)))).shape[0]
+        n_prefix = len(params.get("prefix", []))
+        if n_prefix + n != cfg.num_layers:
+            raise ValueError(f"stack has {n} layers and prefix {n_prefix}, "
+                             f"config {cfg.num_layers}")
+    for i, (layer, (sub, j)) in enumerate(zip(model.layers,
+                                              _layer_sources(cfg, params))):
+        ours = dict(_layer_leaves(layer))
+        theirs = set(_jax_paths(sub))
+        if set(ours) != theirs:
+            raise ValueError(
+                f"layers[{i}]: JAX leaves {sorted(theirs - set(ours))} have "
+                f"no port weight, port weights {sorted(set(ours) - theirs)} "
+                "no JAX leaf")
+        for path, dst in ours.items():
+            src = sub
+            for key in path:
+                src = src[key]
+            _fill(dst, src, j, f"layers[{i}].{'.'.join(path)}")
     return model
+
+
+def _leaf_arrays(tree):
+    """The arrays of a pytree (a quantized dict gives its q8)."""
+    if _is_quant(tree):
+        yield tree["q8"]
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaf_arrays(v)
+    else:
+        yield tree
 
 
 def from_jax_params(cfg: ModelConfig, params: Mapping, *,
@@ -105,23 +173,42 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _nest(pairs) -> dict:
+    """A nested dict from (key path, value) pairs."""
+    out: dict = {}
+    for path, value in pairs:
+        d = out
+        for key in path[:-1]:
+            d = d.setdefault(key, {})
+        d[path[-1]] = value
+    return out
+
+
 @torch.no_grad()
 def to_jax_params(model: Transformer) -> dict:
-    """The JAX dense-model parameter pytree of an fp32 ``model`` as numpy
-    arrays: ``stack`` a one-element list whose leaves carry a leading
-    layer axis, no ``lm_head`` when the embeddings are tied.
-    ``load_jax_params`` of the result gives the same model back, value for
-    value."""
-    if model.cfg.quant:
+    """The JAX parameter pytree of an fp32 ``model`` as numpy arrays:
+    ``prefix`` (a MoE config's dense ``first_dense`` layers, one
+    ``[sub-layer]`` list each) and ``stack`` (a one-element list whose
+    leaves carry a leading layer axis), no ``lm_head`` when the
+    embeddings are tied.  ``load_jax_params`` of the result gives the same
+    model back, value for value."""
+    cfg = model.cfg
+    if cfg.quant:
         raise ValueError("to_jax_params takes an fp32 model (the trainer's); "
-                         f"{model.cfg.name} is {model.cfg.quant}")
+                         f"{cfg.name} is {cfg.quant}")
     out = {"embed": {"table": _numpy(model.embed.table)},
            "final_norm": {"scale": _numpy(model.final_norm.scale)}}
     if model.lm_head is not None:
         out["lm_head"] = {"table": _numpy(model.lm_head.table)}
-    unit = {part: {name: np.stack([_numpy(getattr(getattr(layer, part), name))
-                                   for layer in model.layers])
-                   for name in names}
-            for part, names in _LAYER_KEYS.items()}
-    out["stack"] = [unit]
+    n_prefix = cfg.moe.first_dense if cfg.moe is not None else 0
+    layers = list(model.layers)
+    if n_prefix:
+        out["prefix"] = [[_nest((path, _numpy(w)) for path, w in
+                                _layer_leaves(layer))]
+                         for layer in layers[:n_prefix]]
+    stacked = layers[n_prefix:]
+    if stacked:
+        per = [dict(_layer_leaves(layer)) for layer in stacked]
+        out["stack"] = [_nest((path, np.stack([_numpy(p[path]) for p in per]))
+                              for path in per[0])]
     return out

@@ -181,13 +181,14 @@ def remap_tree_caches(tree_caches, index_map: torch.Tensor, capacity: int):
     prefix; stale rows are never attended).  Buffers carry ``capacity + w``
     rows (slack for fixed-width layer writes); the slack rows map to -1.
     """
-    length = tree_caches[0]["k"].shape[1]
+    first = next(iter(tree_caches[0].values()))
+    length = first.shape[1]
     im = torch.cat([index_map.long(),
                     torch.full((length - capacity,), -1, dtype=torch.long)])
     ar = torch.arange(length)
     # inverse permutation: g[new] = old, dropped rows pushed to the end
     g = torch.argsort(torch.where(im >= 0, im, length + ar), stable=True)
-    g = g.to(tree_caches[0]["k"].device)
+    g = g.to(first.device)
     for layer in tree_caches:
         for buf in layer.values():
             buf.copy_(buf.index_select(1, g))

@@ -54,6 +54,43 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// O += P V for one 8-key tile of P, in the 3xTF32 form: ab/as are the big
+// and small parts of this thread's A fragment of P (k slots tq and tq + 4,
+// its keys 2 tq and 2 tq + 1), and vp points at V row 2 tq of the tile at
+// column gq (rows S floats apart).  Every acc[dt] takes its three products
+// in the order small * big, big * small, big * big.  Up to head_dim 128
+// each product runs over all kDT column tiles before the next (one group);
+// wider heads go in groups of 8 tiles so that the V fragments of one group
+// stay in registers beside the accumulators.  The grouping reorders only
+// MMAs of different acc[dt], so every sum is the same.
+template <int kDT, int S>
+__device__ __forceinline__ void pv_update(float (*acc)[4], const uint32_t* ab,
+                                          const uint32_t* as,
+                                          const float* vp) {
+  constexpr int kG = kDT > 16 ? 8 : kDT;
+#pragma unroll
+  for (int d0 = 0; d0 < kDT; d0 += kG) {
+    uint32_t vb[kG][2], vsm[kG][2];
+#pragma unroll
+    for (int dt = 0; dt < kG; ++dt) {
+      split_tf32(vp[8 * (d0 + dt)], vb[dt][0], vsm[dt][0]);
+      split_tf32(vp[8 * (d0 + dt) + S], vb[dt][1], vsm[dt][1]);
+    }
+#pragma unroll
+    for (int dt = 0; dt < kG; ++dt) {
+      mma_tf32(acc[d0 + dt], as, vb[dt][0], vb[dt][1]);
+    }
+#pragma unroll
+    for (int dt = 0; dt < kG; ++dt) {
+      mma_tf32(acc[d0 + dt], ab, vsm[dt][0], vsm[dt][1]);
+    }
+#pragma unroll
+    for (int dt = 0; dt < kG; ++dt) {
+      mma_tf32(acc[d0 + dt], ab, vb[dt][0], vb[dt][1]);
+    }
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);

@@ -102,7 +102,9 @@ __host__ __device__ constexpr int chunk_keys(int hd) {
 // fp32 tiles [32][HD + 4], two of each for fp32 K/V, one for int8, whose
 // raw K and V tiles [32][HD] and scales [32] are the two buffers instead
 // (they are dequantized into the fp32 tiles once landed).  At head_dim
-// 128 a CTA takes 99 KB (fp32) or 83 KB (int8): two CTAs an SM.
+// 128 a CTA takes 99 KB (fp32) or 83 KB (int8): two CTAs an SM; at 256
+// (Gemma) 195 KB or 163 KB: one.  After the last tile, everything past q
+// holds the key halves' hand-over (kHandover floats) and the chunk merge.
 template <int HD, bool kInt8>
 struct Smem {
   static constexpr int kStride = HD + 4;
@@ -114,6 +116,11 @@ struct Smem {
   static constexpr size_t kBytes =
       4 * ((size_t)kQ + 2 * kBufs * (size_t)kKV + 4 * (size_t)kSc) +
       4 * (size_t)kRaw;
+  // one warp's (acc, m, l) per m16 row tile, 32 lanes each
+  static constexpr int kHandover = (kMaxRows / 16) * (HD / 2 + 4) * 32;
+  static_assert((size_t)4 * (kQ + kHandover) <= kBytes,
+                "the key halves' hand-over must fit past q");
+  static_assert(kBytes <= 227 * 1024, "over the opt-in shared memory");
 };
 
 template <class Elem, bool kPaged, int HD>
@@ -368,25 +375,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_lse_kernel(
         split_tf32(s[j][2], ab[1], as[1]);
         split_tf32(s[j][1], ab[2], as[2]);
         split_tf32(s[j][3], ab[3], as[3]);
-        const float* vp = vs + (8 * (2 * kh + j) + 2 * tq) * S + gq;
-        uint32_t vb[kDT][2], vsm[kDT][2];
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          split_tf32(vp[8 * dt], vb[dt][0], vsm[dt][0]);
-          split_tf32(vp[8 * dt + S], vb[dt][1], vsm[dt][1]);
-        }
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          mma_tf32(acc[dt], as, vb[dt][0], vb[dt][1]);
-        }
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          mma_tf32(acc[dt], ab, vsm[dt][0], vsm[dt][1]);
-        }
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          mma_tf32(acc[dt], ab, vb[dt][0], vb[dt][1]);
-        }
+        pv_update<kDT, S>(acc, ab, as,
+                          vs + (8 * (2 * kh + j) + 2 * tq) * S + gq);
       }
     }
     __syncthreads();                     // readers done before the refill
@@ -641,7 +631,7 @@ int launch(const void* q, long long qsb, long long qsh, long long qsn,
            int KV, int n, int L, int hd, int bq, int causal, int window,
            float scale, void* stream) {
   if (B < 1 || KV < 1 || H % KV != 0 || n < 1 || bq < 1 || hd < 1 ||
-      hd > 128 || L < 0 || (long long)B * KV > 65535 ||
+      hd > 256 || L < 0 || (long long)B * KV > 65535 ||
       (k_scale == nullptr) != (v_scale == nullptr) ||
       (kPaged && (table == nullptr || mb < 1 || page < 1 || L > mb * page))) {
     return (int)cudaErrorInvalidValue;
@@ -668,11 +658,13 @@ int launch(const void* q, long long qsb, long long qsh, long long qsn,
       n, L, hd, rep, bq, causal, window, scale, vec, s
   cudaError_t err;
   if (int8) {
-    err = hd <= 64 ? launch_hd<int8_t, kPaged, 64>(FLASH_ARGS)
-                   : launch_hd<int8_t, kPaged, 128>(FLASH_ARGS);
+    err = hd <= 64    ? launch_hd<int8_t, kPaged, 64>(FLASH_ARGS)
+          : hd <= 128 ? launch_hd<int8_t, kPaged, 128>(FLASH_ARGS)
+                      : launch_hd<int8_t, kPaged, 256>(FLASH_ARGS);
   } else {
-    err = hd <= 64 ? launch_hd<float, kPaged, 64>(FLASH_ARGS)
-                   : launch_hd<float, kPaged, 128>(FLASH_ARGS);
+    err = hd <= 64    ? launch_hd<float, kPaged, 64>(FLASH_ARGS)
+          : hd <= 128 ? launch_hd<float, kPaged, 128>(FLASH_ARGS)
+                      : launch_hd<float, kPaged, 256>(FLASH_ARGS);
   }
 #undef FLASH_ARGS
   return (int)err;

@@ -388,25 +388,7 @@ __global__ void __launch_bounds__(kThreads) tree_block_attention_kernel(
         split_tf32(s[j][2], ab[1], as[1]);
         split_tf32(s[j][1], ab[2], as[2]);
         split_tf32(s[j][3], ab[3], as[3]);
-        const float* vp = vs + (kb + 8 * j + 2 * tq) * S + gq;
-        uint32_t vb[kDT][2], vsm[kDT][2];
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          split_tf32(vp[8 * dt], vb[dt][0], vsm[dt][0]);
-          split_tf32(vp[8 * dt + S], vb[dt][1], vsm[dt][1]);
-        }
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          mma_tf32(acc[dt], as, vb[dt][0], vb[dt][1]);
-        }
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          mma_tf32(acc[dt], ab, vsm[dt][0], vsm[dt][1]);
-        }
-#pragma unroll
-        for (int dt = 0; dt < kDT; ++dt) {
-          mma_tf32(acc[dt], ab, vb[dt][0], vb[dt][1]);
-        }
+        pv_update<kDT, S>(acc, ab, as, vs + (kb + 8 * j + 2 * tq) * S + gq);
       }
     }
     __syncthreads();                     // readers done before the refill
@@ -550,7 +532,7 @@ int launch(const void* q, long long qsb, long long qsh, long long qsn,
            void* stream) {
   const bool merged = past_o != nullptr;
   if (B < 1 || KV < 1 || H % KV != 0 || n < 1 || T < 1 || hd < 1 ||
-      hd > 128 || B > 65535 || KV > 65535 || sk < 1 ||
+      hd > 256 || B > 65535 || KV > 65535 || sk < 1 ||
       (k_scale == nullptr) != (v_scale == nullptr) ||
       (past_m == nullptr) != !merged || (past_l == nullptr) != !merged ||
       (!merged && (m == nullptr || l == nullptr)) ||
@@ -573,11 +555,13 @@ int launch(const void* q, long long qsb, long long qsh, long long qsn,
       (float*)o, (float*)m, (float*)l, H, n, T, hd, rep, sk, scale, vec, s
   cudaError_t err;
   if (int8) {
-    err = hd <= 64 ? launch_hd<int8_t, kPaged, 64>(TREE_ARGS)
-                   : launch_hd<int8_t, kPaged, 128>(TREE_ARGS);
+    err = hd <= 64    ? launch_hd<int8_t, kPaged, 64>(TREE_ARGS)
+          : hd <= 128 ? launch_hd<int8_t, kPaged, 128>(TREE_ARGS)
+                      : launch_hd<int8_t, kPaged, 256>(TREE_ARGS);
   } else {
-    err = hd <= 64 ? launch_hd<float, kPaged, 64>(TREE_ARGS)
-                   : launch_hd<float, kPaged, 128>(TREE_ARGS);
+    err = hd <= 64    ? launch_hd<float, kPaged, 64>(TREE_ARGS)
+          : hd <= 128 ? launch_hd<float, kPaged, 128>(TREE_ARGS)
+                      : launch_hd<float, kPaged, 256>(TREE_ARGS);
   }
 #undef TREE_ARGS
   return (int)err;

@@ -35,7 +35,8 @@ partials buffer and the per-tile counters on the card.
 Dispatch: a CPU tensor goes to ``flash_attention_lse_plain``; a CUDA
 tensor goes to the kernel, or the wrapper raises.  ``launches`` and
 ``launches_int8`` on the wrapper count kernel launches in the fp32 and the
-int8 mode.
+int8 mode; ``launches_hd256`` and ``launches_int8_hd256`` count those of
+them that ran the head_dim 256 instance (Gemma).
 """
 from __future__ import annotations
 
@@ -55,6 +56,9 @@ MIN_L = 1e-30
 ROWS = 64
 # keys per shared-memory tile of the kernel
 TILE = 32
+# the widest head the attention kernels take: instances for head_dim 64,
+# 128 and 256 (Gemma), each serving every head_dim up to its own
+MAX_HEAD_DIM = 256
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
@@ -251,7 +255,7 @@ def _launch(q, k, v, kv_len, qpos, *, scale, window, causal, k_scale,
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise TypeError("flash_attention_lse kernel takes fp32 q with a "
                         "contiguous head dim")
-    if h % kvh or hd > 128 or h // kvh > ROWS:
+    if h % kvh or hd > MAX_HEAD_DIM or h // kvh > ROWS:
         raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
     if (causal or window > 0) and qpos is None:
         raise ValueError("causal or window masking needs qpos")
@@ -271,10 +275,10 @@ def _launch(q, k, v, kv_len, qpos, *, scale, window, causal, k_scale,
              int(window), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention_lse", err)
-    if int8:
-        bump_attr(flash_attention_lse, "launches_int8")
-    else:
-        bump_attr(flash_attention_lse, "launches")
+    mode = "launches_int8" if int8 else "launches"
+    bump_attr(flash_attention_lse, mode)
+    if hd > 128:     # the head_dim 256 instance (Gemma)
+        bump_attr(flash_attention_lse, mode + "_hd256")
     return o, m, l
 
 
@@ -304,3 +308,5 @@ def flash_attention_lse(q, k, v, kv_len, qpos=None, *, k_scale=None,
 
 flash_attention_lse.launches = 0
 flash_attention_lse.launches_int8 = 0
+flash_attention_lse.launches_hd256 = 0
+flash_attention_lse.launches_int8_hd256 = 0

@@ -31,7 +31,9 @@ not the bytes; the table adds 4 bytes per ``page`` keys.
 Dispatch: CPU tensors go to the plain versions, which gather the dense
 view through the table and run the dense plain version; CUDA tensors go
 to the kernel, or the wrapper raises.  ``launches`` and ``launches_int8``
-on each wrapper count its kernel launches in the fp32 and the int8 mode.
+on each wrapper count its kernel launches in the fp32 and the int8 mode;
+``launches_hd256`` and ``launches_int8_hd256`` count those of them that
+ran the head_dim 256 instance (Gemma).
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ import torch
 from repro_torch.counting import bump_attr
 from repro_torch.kernels import build
 from repro_torch.kernels import flash, tree_block
-from repro_torch.kernels.flash import (check_kv, flash_attention_lse_plain,
+from repro_torch.kernels.flash import (MAX_HEAD_DIM, check_kv,
+                                       flash_attention_lse_plain,
                                        qpos_rows, rows_i32, scale_args)
 from repro_torch.kernels.tree_block import tree_block_attention_plain
 
@@ -118,7 +121,7 @@ def _check(name, q, k_pool, v_pool, table, k_scale, v_scale, rows=None):
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise TypeError(f"{name} kernel takes fp32 q with a contiguous head "
                         "dim")
-    if (h % kvh or hd > 128 or k_pool.shape[3] != hd
+    if (h % kvh or hd > MAX_HEAD_DIM or k_pool.shape[3] != hd
             or (rows is not None and h // kvh > rows)):
         raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
     if table.dim() != 2 or table.shape[0] != b:
@@ -157,10 +160,10 @@ def _launch_flash(q, k_pool, v_pool, table, kv_len, qpos, *, scale, window,
              int(window), float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(name, err)
-    if int8:
-        bump_attr(paged_flash_attention_lse, "launches_int8")
-    else:
-        bump_attr(paged_flash_attention_lse, "launches")
+    mode = "launches_int8" if int8 else "launches"
+    bump_attr(paged_flash_attention_lse, mode)
+    if hd > 128:     # the head_dim 256 instance (Gemma)
+        bump_attr(paged_flash_attention_lse, mode + "_hd256")
     return o, m, l
 
 
@@ -213,10 +216,10 @@ def _launch_tree(q, k_pool, v_pool, table, mask, *, scale, k_scale,
              float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(name, err)
-    if int8:
-        bump_attr(paged_tree_block_attention, "launches_int8")
-    else:
-        bump_attr(paged_tree_block_attention, "launches")
+    mode = "launches_int8" if int8 else "launches"
+    bump_attr(paged_tree_block_attention, mode)
+    if hd > 128:     # the head_dim 256 instance (Gemma)
+        bump_attr(paged_tree_block_attention, mode + "_hd256")
     return o if past is not None else (o, m, l)
 
 
@@ -251,5 +254,9 @@ def paged_tree_block_attention(q, k_pool, v_pool, table, tree_mask, *,
 
 paged_flash_attention_lse.launches = 0
 paged_flash_attention_lse.launches_int8 = 0
+paged_flash_attention_lse.launches_hd256 = 0
+paged_flash_attention_lse.launches_int8_hd256 = 0
 paged_tree_block_attention.launches = 0
 paged_tree_block_attention.launches_int8 = 0
+paged_tree_block_attention.launches_hd256 = 0
+paged_tree_block_attention.launches_int8_hd256 = 0

@@ -34,7 +34,8 @@ launch passes ``stage_keys`` alone: the kernel derives the rest.
 Dispatch: a CPU tensor goes to ``tree_block_attention_plain``; a CUDA
 tensor goes to the kernel, or the wrapper raises.  ``launches`` and
 ``launches_int8`` on the wrapper count kernel launches in the fp32 and the
-int8 mode.
+int8 mode; ``launches_hd256`` and ``launches_int8_hd256`` count those of
+them that ran the head_dim 256 instance (Gemma).
 """
 from __future__ import annotations
 
@@ -47,8 +48,9 @@ import torch
 
 from repro_torch.counting import bump_attr
 from repro_torch.kernels import build
-from repro_torch.kernels.flash import (MIN_L, check_kv, dequant_kv,
-                                       masked_softmax_lse, scale_args)
+from repro_torch.kernels.flash import (MAX_HEAD_DIM, MIN_L, check_kv,
+                                       dequant_kv, masked_softmax_lse,
+                                       scale_args)
 
 # The kernel's tile shape (kRows, kWarps in the source): (query, head) rows
 # and warps a CTA.  16 x 8 was the fastest of (16 | 32) x (4 | 8) over the
@@ -69,8 +71,9 @@ _ARGTYPES = [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64,
 
 def wave_keys(hd: int) -> int:
     """The most tree rows a CTA stages in one wave: K and V of 128 keys at
-    head_dim 128 (135 KB in fp32), 256 at 64."""
-    return 128 if hd > 64 else 256
+    head_dim 128 (135 KB in fp32), 256 at 64, 64 at 256 (133 KB; 128 keys
+    would take 266 KB, over the card's 227 KB a CTA)."""
+    return 64 if hd > 128 else 128 if hd > 64 else 256
 
 
 def stage_keys(t: int, hd: int) -> int:
@@ -184,7 +187,7 @@ def _launch(q, k_tree, v_tree, mask, *, scale, k_scale, v_scale, past):
     if q.dtype != torch.float32 or q.stride(-1) != 1:
         raise TypeError("tree_block_attention kernel takes fp32 q with a "
                         "contiguous head dim")
-    if h % kvh or hd > 128:
+    if h % kvh or hd > MAX_HEAD_DIM:
         raise ValueError(f"unsupported shape H={h} KV={kvh} hd={hd}")
     past_ptrs = [None] * 3 if past is None else check_past(past, q)
     o, m, l = outputs(q, past)
@@ -198,10 +201,10 @@ def _launch(q, k_tree, v_tree, mask, *, scale, k_scale, v_scale, past):
              b, h, kvh, n, t, hd, stage_keys(t, hd),
              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     build.check("tree_block_attention", err)
-    if int8:
-        bump_attr(tree_block_attention, "launches_int8")
-    else:
-        bump_attr(tree_block_attention, "launches")
+    mode = "launches_int8" if int8 else "launches"
+    bump_attr(tree_block_attention, mode)
+    if hd > 128:     # the head_dim 256 instance (Gemma)
+        bump_attr(tree_block_attention, mode + "_hd256")
     return o if past is not None else (o, m, l)
 
 
@@ -233,3 +236,5 @@ def tree_block_attention(q, k_tree, v_tree, tree_mask, *, k_scale=None,
 
 tree_block_attention.launches = 0
 tree_block_attention.launches_int8 = 0
+tree_block_attention.launches_hd256 = 0
+tree_block_attention.launches_int8_hd256 = 0

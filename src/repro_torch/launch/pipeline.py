@@ -85,11 +85,29 @@ class PipelineConfig:
     max_len: int
 
 
+def check_ring_supported(cfg: ModelConfig) -> None:
+    """Raise unless the ring serves ``cfg``: dense GQA decoders with a
+    SwiGLU MLP and no QKV bias (fp32 or int8), what the ring is tested on.
+    MoE, MLA, QKV bias and other MLPs run in the local executors; on the
+    ring and the async executor they are ROADMAP item 17."""
+    tf.check_supported(cfg)
+    bad = [name for name, on in (
+        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("qkv_bias", cfg.qkv_bias),
+        (f"mlp_variant={cfg.mlp_variant}", cfg.mlp_variant != "swiglu"))
+        if on]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: the stage ring and the async executor serve "
+            f"dense SwiGLU decoders only, not {', '.join(bad)} (ROADMAP "
+            "item 17: the ring with the new families)")
+
+
 def stage_layout(cfg: ModelConfig, n_stages: int) -> Tuple[int, int]:
     """(layers_per_stage, padded_total): the layers are cut into
     ``n_stages`` runs of ``ceil(L / n_stages)``; the last stages carry
     padding when ``n_stages`` does not divide L."""
-    tf.check_supported(cfg)
+    check_ring_supported(cfg)
     lps = -(-cfg.num_layers // n_stages)
     return lps, lps * n_stages
 
@@ -197,7 +215,7 @@ def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig):
         d]), writing the model-cache rows [off[b], off[b] + Pcap) of the
         slots that are ``on``.
     """
-    tf.check_supported(cfg)
+    check_ring_supported(cfg)
     window = cfg.sliding_window
 
     def stage_apply(layers, valid_row, kv, tkv, x, positions, mask,

@@ -32,6 +32,10 @@ ring; its warm-up also covers the requests' joining ticks).
 each stage actor's busy and idle seconds of its host thread per timestep
 over the plainly timed window, its largest inbox depth, and the draft's
 largest lead.  ``--quant int8`` composes with every executor.
+``--target-arch`` and ``--draft-arch`` profile another pair of the
+registry at published widths (the target cut to 8 layers, the draft given
+the target's vocabulary), e.g. ``--target-arch gemma-7b --draft-arch
+gemma-7b``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       [--quant int8] [--mode pipedec-db [--paged]
@@ -53,7 +57,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from repro_torch.configs import pipedec_pair
+from repro_torch import configs as cfg_reg
 from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.device import resolve_device
@@ -121,6 +125,12 @@ def main(argv=None) -> None:
                          "8-stage ring or its free-running stage actors")
     ap.add_argument("--overlap", action="store_true",
                     help="--executor sharded: one ring tick per timestep")
+    ap.add_argument("--target-arch", default="pipedec-target",
+                    help="the target's architecture at published width, "
+                         f"cut to {TARGET_LAYERS} layers")
+    ap.add_argument("--draft-arch", default="pipedec-draft",
+                    help="the draft's architecture at published width, "
+                         "with the target's vocabulary")
     args = ap.parse_args(argv)
     if (args.paged or args.executor != "local") and \
             args.mode != "pipedec-db":
@@ -131,13 +141,15 @@ def main(argv=None) -> None:
         ap.error("--executor async has no paged arena")
 
     dev = resolve_device("cuda")
-    tcfg = dataclasses.replace(pipedec_pair.TARGET,
-                               num_layers=TARGET_LAYERS)
+    tcfg = cfg_reg.get_config(args.target_arch)
+    tcfg = dataclasses.replace(tcfg, num_layers=min(TARGET_LAYERS,
+                                                    tcfg.num_layers))
+    dcfg = dataclasses.replace(cfg_reg.get_config(args.draft_arch),
+                               vocab_size=tcfg.vocab_size)
     target = ModelBundle(tf.init_model(tcfg, seed=0, device=dev))
     if args.quant == "int8":    # the fp32 projections are freed here
         target = target.quantize()
-    draft = ModelBundle(tf.init_model(pipedec_pair.DRAFT, seed=1,
-                                      device=dev))
+    draft = ModelBundle(tf.init_model(dcfg, seed=1, device=dev))
     if args.quant == "int8":
         draft = draft.quantize()
     pcfg = PipeDecConfig(n_stages=STAGES, width=8, branch=4)
@@ -208,7 +220,8 @@ def main(argv=None) -> None:
     _emit({"profile": "timestep", "device": torch.cuda.get_device_name(0),
            "mode": args.mode, "paged": args.paged, "occupancy": occupancy,
            "executor": args.executor, "overlap": args.overlap,
-           "quant": args.quant, "target_layers": TARGET_LAYERS,
+           "quant": args.quant, "target": tcfg.name, "draft": dcfg.name,
+           "target_layers": tcfg.num_layers,
            "stages": STAGES,
            "steps": STEPS, "wall_ms": wall_ms,
            "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,

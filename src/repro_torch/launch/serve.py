@@ -7,7 +7,14 @@ mode.
       --paged --slots 3
 
 runs the smoke-size pair on the card; ``--device cpu`` runs it on the
-CPU; ``--quant int8`` serves both bundles quantized
+CPU.  ``--target-arch`` and ``--draft-arch`` pick other architectures
+of the registry at their smoke sizes (the JAX CLI's flags and defaults):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --target-arch gemma-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --target-arch deepseek-v2-236b --mode pipedec-db --paged
+
+``--quant int8`` serves both bundles quantized
 (``ModelBundle.quantize()``: int8 projections through the dequant-matmul
 kernel, an int8 KV cache through the attention kernels' int8 mode).
 ``--mode pipedec-db`` serves SpecPipe-DB with ``--slots`` slots, over a
@@ -75,6 +82,12 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
                     help="sharded executor only: one ring tick per "
                          "timestep with deferred exit logits and prefill "
                          "in the ring, instead of one flush per timestep")
+    ap.add_argument("--target-arch", default="pipedec-target",
+                    help="the target's architecture (configs: a public id "
+                         "such as gemma-7b or deepseek-v2-236b), smoke size")
+    ap.add_argument("--draft-arch", default="pipedec-draft",
+                    help="the draft's architecture, smoke size (every "
+                         "smoke config has the same 512-token vocabulary)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -105,10 +118,10 @@ def main(argv=None) -> Tuple[ServingEngine, Dict[int, Result]]:
         ap.error("--executor async has no paged arena: use --executor "
                  "sharded --paged")
 
-    target = build_bundle("pipedec-target", seed=0, device=args.device)
+    target = build_bundle(args.target_arch, seed=0, device=args.device)
     draft = None
     if args.mode != "pp":
-        draft = build_bundle("pipedec-draft", seed=1, device=args.device)
+        draft = build_bundle(args.draft_arch, seed=1, device=args.device)
     if args.quant == "int8":
         target = target.quantize()
         draft = draft.quantize() if draft is not None else None

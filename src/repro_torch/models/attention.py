@@ -1,6 +1,7 @@
-"""Grouped-query attention with KV caches and the two-level (model + tree)
-cache path of paper Algorithm 1: the dense GQA subset of the JAX package's
-``repro/models/attention.py``.
+"""Grouped-query attention (with or without QKV bias) and multi-head
+latent attention (MLA, DeepSeek-V2), with KV caches and the two-level
+(model + tree) cache path of paper Algorithm 1: the port of the JAX
+package's ``repro/models/attention.py`` without its cross-attention.
 
 Shapes follow the JAX package: x [B, S, d_model], q [B, S, H, hd],
 k/v [B, S, KV, hd], caches ``{"k", "v"}`` of [B, L, KV, hd] per layer.
@@ -36,6 +37,12 @@ keeps one copy of every cache on the card.  Dense writes are checked on
 the host to fit; nothing is clamped or dropped.  Paged writes follow the
 reference's drop semantics: rows past the buffer end land in the null
 block.
+
+MLA (``MLAttention``) caches the compressed rows ``{"c_kv", "k_rope"}``
+and attends in plain PyTorch in every mode, as the reference does (its
+kernel paths require ``cfg.mla is None``): expanded per-head K/V under one
+joint softmax for a prompt, a chunk and a tree layer, and the absorbed
+form for decode.  Its caches page like K/V.
 """
 from __future__ import annotations
 
@@ -52,12 +59,14 @@ from repro_torch.kernels.quant import quantize_rows
 from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (QuantWeight, apply_rope, dense_init_,
-                                       weight, wide)
+                                       param, weight, wide)
 
 
 class Attention(nn.Module):
     """GQA projections: w_q [d,H,hd], w_k/w_v [d,KV,hd], w_o [H,hd,d]; int8
-    ``QuantWeight``s when ``cfg.quant == "int8"``."""
+    ``QuantWeight``s when ``cfg.quant == "int8"``.  With ``cfg.qkv_bias``
+    (Qwen) also fp32 biases b_q [H,hd], b_k/b_v [KV,hd], added after the
+    projections and before RoPE (fp32 in an int8 model too)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -68,13 +77,50 @@ class Attention(nn.Module):
         self.w_k = weight((d, kv, hd), 1, quant, device)
         self.w_v = weight((d, kv, hd), 1, quant, device)
         self.w_o = weight((h, hd, d), 2, quant, device)
+        if cfg.qkv_bias:
+            self.b_q = param((h, hd), device)
+            self.b_k = param((kv, hd), device)
+            self.b_v = param((kv, hd), device)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """LeCun normal weights (w_o's fan-in is the head dim, as in JAX)."""
+        """LeCun normal weights (w_o's fan-in is the head dim, as in JAX);
+        zero biases."""
         d, _, hd = self.w_q.shape
         for w in (self.w_q, self.w_k, self.w_v):
             dense_init_(w, d, gen)
         dense_init_(self.w_o, hd, gen)
+        for name in ("b_q", "b_k", "b_v"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+
+
+class MLAttention(nn.Module):
+    """Multi-head latent attention (DeepSeek-V2), fp32: w_dq [d,rq] and
+    w_q [rq,H,nope+rope] (or w_q [d,H,nope+rope] without a q low rank),
+    w_dkv [d,r], w_kr [d,rope], w_ukv [r,H,nope+v], w_o [H,v,d].  The
+    caches keep the compressed rows (``c_kv`` [B,L,r], ``k_rope``
+    [B,L,rope]); attention runs in plain PyTorch, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, h, m = cfg.d_model, cfg.num_heads, cfg.mla
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        if m.q_lora_rank:
+            self.w_dq = param((d, m.q_lora_rank), device)
+            self.w_q = param((m.q_lora_rank, h, qd), device)
+        else:
+            self.w_q = param((d, h, qd), device)
+        self.w_dkv = param((d, m.kv_lora_rank), device)
+        self.w_kr = param((d, m.qk_rope_head_dim), device)
+        self.w_ukv = param((m.kv_lora_rank, h,
+                            m.qk_nope_head_dim + m.v_head_dim), device)
+        self.w_o = param((h, m.v_head_dim, d), device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """LeCun normal weights over each weight's input axis (w_o's is the
+        value head dim, as in JAX)."""
+        for name, w in self.named_parameters(recurse=False):
+            dense_init_(w, w.shape[1] if name == "w_o" else w.shape[0], gen)
 
 
 def _proj(x, w):
@@ -84,7 +130,7 @@ def _proj(x, w):
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def _out(p: Attention, out):
+def _out(p, out):
     """Attention output [B,S,H,hd] through w_o -> [B,S,d]."""
     if isinstance(p.w_o, QuantWeight):
         return ops.quant_matmul(out, p.w_o.q8, p.w_o.scale)
@@ -92,10 +138,13 @@ def _out(p: Attention, out):
 
 
 def project_qkv(p: Attention, cfg: ModelConfig, x, positions):
-    """q [B,S,H,hd], k/v [B,S,KV,hd] with RoPE applied to q and k."""
-    q = apply_rope(_proj(x, p.w_q), positions, cfg.rope_theta)
-    k = apply_rope(_proj(x, p.w_k), positions, cfg.rope_theta)
-    return q, k, _proj(x, p.w_v)
+    """q [B,S,H,hd], k/v [B,S,KV,hd]: the biases (when the model has them)
+    added, then RoPE applied to q and k."""
+    q, k, v = _proj(x, p.w_q), _proj(x, p.w_k), _proj(x, p.w_v)
+    if cfg.qkv_bias:
+        q, k, v = q + p.b_q, k + p.b_k, v + p.b_v
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def gqa_attend(q, k, v, mask, *, scale: Optional[float] = None):
@@ -164,7 +213,15 @@ def chunked_causal_attend(q, k, v, *, window: int = 0,
 # --------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """Zeroed fp32 {"k", "v"} [batch, max_len, KV, hd]; for an int8 model,
-    int8 {"k", "v"} and fp32 {"k_scale", "v_scale"} [batch, max_len, KV]."""
+    int8 {"k", "v"} and fp32 {"k_scale", "v_scale"} [batch, max_len, KV];
+    for MLA, fp32 {"c_kv" [batch, max_len, r], "k_rope" [batch, max_len,
+    rope]}."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                    device=device),
+                "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                      device=device)}
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     if cfg.quant == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -283,6 +340,105 @@ def _kernel_view(buf):
 
 
 # --------------------------------------------------------------------------
+# multi-head latent attention (DeepSeek-V2), plain PyTorch as in the
+# reference: a prompt, a chunk and a tree layer attend over the cache's
+# compressed rows expanded to per-head K/V (joint softmax); decode attends
+# in the compressed space (the reference's absorbed form, W_uk folded into
+# q and W_uv applied after), which sums in another order
+# --------------------------------------------------------------------------
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(nope + rope), rounded as the reference computes it (fp32
+    square root and division)."""
+    m = cfg.mla
+    qd = torch.tensor(float(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    return float(1.0 / torch.sqrt(qd))
+
+
+def _raw(buf):
+    """A cache leaf's dense [B, L, ...] rows (a paged leaf gathered through
+    its table)."""
+    return paging.to_dense(buf) if paging.is_paged(buf) else buf
+
+
+def _mla_rows(p: MLAttention, cfg: ModelConfig, x, positions):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope], cache rows {"c_kv"
+    [B,S,r], "k_rope" [B,S,rope]}) of x at ``positions``; RoPE on q_rope
+    and on the single-head k_rope."""
+    m = cfg.mla
+    xq = x @ p.w_dq if hasattr(p, "w_dq") else x
+    q = _proj(xq, p.w_q)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope((x @ p.w_kr)[..., None, :], positions,
+                        cfg.rope_theta)[..., 0, :]
+    return q_nope, q_rope, {"c_kv": x @ p.w_dkv, "k_rope": k_rope}
+
+
+def _mla_expand(p: MLAttention, cfg: ModelConfig, rows):
+    """Per-head k [B,L,H,nope+rope] and v [B,L,H,v] of compressed rows
+    (k_rope shared by every head)."""
+    m = cfg.mla
+    kv = _proj(_raw(rows["c_kv"]), p.w_ukv)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    kr = _raw(rows["k_rope"])[:, :, None, :].expand(*k_nope.shape[:3], -1)
+    return torch.cat([k_nope, kr], -1), v
+
+
+def _mla_attend(p: MLAttention, cfg: ModelConfig, q_nope, q_rope, k, v,
+                mask):
+    """Joint softmax of the expanded form, through w_o: [B,S,d]."""
+    out = gqa_attend(torch.cat([q_nope, q_rope], -1), k, v, mask,
+                     scale=_mla_scale(cfg))
+    return _out(p, out)
+
+
+def _mla_absorbed(p: MLAttention, cfg: ModelConfig, q_nope, q_rope, cache,
+                  valid):
+    """Decode attention in the compressed space: q_* [B,n,H,*] against the
+    cache's c_kv [B,L,r] and k_rope [B,L,rope] under ``valid`` [B,1,n,L]
+    (masked logits take the fp32 minimum, as in the reference).  Returns
+    [B,n,H,v]."""
+    m = cfg.mla
+    c_kv, k_rope = _raw(cache["c_kv"]), _raw(cache["k_rope"])
+    w_uk = p.w_ukv[..., :m.qk_nope_head_dim]          # [r,H,nope]
+    w_uv = p.w_ukv[..., m.qk_nope_head_dim:]          # [r,H,v]
+    q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    lo = (torch.einsum("bqhr,bsr->bhqs", q_eff, c_kv)
+          + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope))
+    lo = wide(lo) * _mla_scale(cfg)
+    lo = lo.masked_fill(~valid, torch.finfo(torch.float32).min)
+    probs = torch.softmax(lo, dim=-1).to(c_kv.dtype)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs, c_kv)
+    return torch.einsum("bqhr,rhd->bqhd", ctx, w_uv)
+
+
+def _mla_causal(p: MLAttention, cfg: ModelConfig, q_nope, q_rope, k, v,
+                window: int):
+    """Causal attention of a whole sequence in the expanded form (chunked
+    from ``CHUNKED_ATTN_THRESHOLD`` keys on), through w_o."""
+    q = torch.cat([q_nope, q_rope], -1)
+    s = q.shape[1]
+    if s >= CHUNKED_ATTN_THRESHOLD:
+        out = chunked_causal_attend(q, k, v, window=window,
+                                    scale=_mla_scale(cfg))
+    else:
+        out = gqa_attend(q, k, v, causal_mask(s, s, 0, window, q.device),
+                         scale=_mla_scale(cfg))
+    return _out(p, out)
+
+
+def _key_bound(length: int, positions, window: int, device):
+    """[B,1,n,L] bool: key j at or before each query's position (and
+    within ``window``)."""
+    kpos = torch.arange(length, device=device)[None, None, None, :]
+    qp = positions[:, None, :, None]
+    valid = kpos <= qp
+    if window:
+        valid &= kpos > qp - window
+    return valid
+
+
+# --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
 def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
@@ -293,7 +449,14 @@ def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
     With an int8 cache the prompt attends the same quantized rows the
     cache keeps (the quantize-dequantize round trip of its own K/V, as in
     the reference), through the flash kernel's int8 mode, so that a
-    prompt read back from the cache later sees the same values."""
+    prompt read back from the cache later sees the same values.  MLA
+    caches the compressed rows and attends in plain PyTorch."""
+    if isinstance(p, MLAttention):
+        q_nope, q_rope, rows = _mla_rows(p, cfg, x, positions)
+        if cache is not None:
+            cache_write_rows(cache, rows, [0])
+        k, v = _mla_expand(p, cfg, rows)
+        return _mla_causal(p, cfg, q_nope, q_rope, k, v, window), cache
     q, k, v = project_qkv(p, cfg, x, positions)
     kw = {}
     if cache is not None:
@@ -313,6 +476,10 @@ def attn_train(p: Attention, cfg: ModelConfig, x, positions, *,
     and without the kernels: ``gqa_attend`` under ``causal_mask`` below
     ``CHUNKED_ATTN_THRESHOLD`` keys, ``chunked_causal_attend`` from there
     on.  positions [B,S].  Returns out [B,S,d]."""
+    if isinstance(p, MLAttention):
+        q_nope, q_rope, rows = _mla_rows(p, cfg, x, positions)
+        k, v = _mla_expand(p, cfg, rows)
+        return _mla_causal(p, cfg, q_nope, q_rope, k, v, window)
     q, k, v = project_qkv(p, cfg, x, positions)
     s = x.shape[1]
     if s >= CHUNKED_ATTN_THRESHOLD:
@@ -338,9 +505,15 @@ def attn_prefill_chunk(p: Attention, cfg: ModelConfig, x, positions, cache,
     chunks caches the rows a one-chunk pass caches.  The cache is dense:
     the ring densifies a paged arena around its ticks.  Returns (out
     [B,s,d], cache)."""
-    if paging.is_paged(cache["k"]):
+    if paging.any_paged(cache):
         raise ValueError("attn_prefill_chunk takes a dense cache: densify "
                          "a paged arena first (paging.densify)")
+    if isinstance(p, MLAttention):
+        q_nope, q_rope, rows = _mla_rows(p, cfg, x, positions)
+        cache_write_rows(cache, rows, chunk_start, on=on, drop=True)
+        k, v = _mla_expand(p, cfg, cache)
+        valid = _key_bound(k.shape[1], positions, window, x.device)
+        return _mla_attend(p, cfg, q_nope, q_rope, k, v, valid), cache
     q, k, v = project_qkv(p, cfg, x, positions)
     cache_write_rows(cache, kv_updates(cache, k, v), chunk_start, on=on,
                      drop=True)
@@ -357,7 +530,16 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,
                 cache_len: Sequence[int], kv_len, *, window: int = 0):
     """One-token decode: x [B,1,d] at ``position`` [B] (device); the new
     K/V row lands at ``cache_len[b]`` (host ints) and the token attends
-    ``kv_len`` [B] = cache_len + 1 rows per batch row."""
+    ``kv_len`` [B] = cache_len + 1 rows per batch row.  MLA attends in
+    the compressed space (``_mla_absorbed``)."""
+    if isinstance(p, MLAttention):
+        q_nope, q_rope, rows = _mla_rows(p, cfg, x, position[:, None])
+        cache_write_rows(cache, rows, cache_len)
+        c_kv = cache["c_kv"]
+        length = c_kv.length if paging.is_paged(c_kv) else c_kv.shape[1]
+        valid = _key_bound(length, position[:, None], window, x.device)
+        out = _mla_absorbed(p, cfg, q_nope, q_rope, cache, valid)
+        return _out(p, out), cache
     q, k, v = project_qkv(p, cfg, x, position[:, None])
     cache_write_rows(cache, kv_updates(cache, k, v), cache_len)
     if paging.is_paged(cache["k"]):
@@ -384,9 +566,28 @@ def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
     ints, or their ``write_index`` as ``tree_write_rows``); tree_mask
     [B,n,T] is each node's ancestor-or-self mask against the whole tree
     buffer.  Paged caches (both, as the paged arena keeps
-    them) go through the paged kernels.  Returns (out [B,n,d],
-    tree_cache).
+    them) go through the paged kernels.  MLA attends in plain PyTorch
+    over both caches expanded, one joint softmax, as the reference does.
+    Returns (out [B,n,d], tree_cache).
     """
+    if isinstance(p, MLAttention):
+        q_nope, q_rope, rows = _mla_rows(p, cfg, x, positions)
+        cache_write_rows(tree_cache, rows, tree_write_index,
+                         index=tree_write_rows)
+        k_past, v_past = _mla_expand(p, cfg, model_cache)
+        k_tree, v_tree = _mla_expand(p, cfg, tree_cache)
+        b, n = positions.shape
+        kpos = torch.arange(k_past.shape[1], device=x.device)
+        past = (kpos[None, None, None, :]
+                < model_len.long()[:, None, None, None])
+        if window:
+            past = past & (kpos > positions[:, None, :, None] - window)
+        mask = torch.cat([past.expand(b, 1, n, k_past.shape[1]),
+                          tree_mask[:, None]], -1)
+        out = _mla_attend(p, cfg, q_nope, q_rope,
+                          torch.cat([k_past, k_tree], 1),
+                          torch.cat([v_past, v_tree], 1), mask)
+        return out, tree_cache
     q, k, v = project_qkv(p, cfg, x, positions)
     cache_write_rows(tree_cache, kv_updates(tree_cache, k, v),
                      tree_write_index, index=tree_write_rows)

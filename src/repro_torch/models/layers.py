@@ -1,4 +1,5 @@
-"""Shared building blocks: RMSNorm, RoPE, the SwiGLU MLP, embeddings.
+"""Shared building blocks: RMSNorm, RoPE, the MLPs (SwiGLU, GeGLU, GELU),
+embeddings.
 
 Weights keep the JAX package's shapes and layouts (``w_gate [d, ff]``,
 ``table [V, d]``), so the weight bridge copies arrays as they are.  The
@@ -137,29 +138,46 @@ def apply_rope(x, positions, theta: float):
 
 
 class MLP(nn.Module):
-    """SwiGLU feed-forward block: silu(x W_gate) * (x W_up) W_down, with
-    int8 ``QuantWeight``s when ``quant``."""
+    """Feed-forward block of ``variant``: SwiGLU, silu(x W_gate) * (x W_up)
+    W_down; GeGLU, the same with tanh GELU; or plain GELU, gelu(x W_up)
+    W_down, with no ``w_gate``.  Int8 ``QuantWeight``s when ``quant``."""
 
-    def __init__(self, d_model: int, d_ff: int, device, quant: bool = False):
+    def __init__(self, d_model: int, d_ff: int, device, quant: bool = False,
+                 variant: str = "swiglu"):
         super().__init__()
-        self.w_gate = weight((d_model, d_ff), 1, quant, device)
+        if variant not in MLP_VARIANTS:
+            raise ValueError(f"unknown mlp variant {variant!r}")
+        self.variant = variant
+        if variant != "gelu":
+            self.w_gate = weight((d_model, d_ff), 1, quant, device)
         self.w_up = weight((d_model, d_ff), 1, quant, device)
         self.w_down = weight((d_ff, d_model), 1, quant, device)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """LeCun normal weights."""
-        dense_init_(self.w_gate, self.w_gate.shape[0], gen)
-        dense_init_(self.w_up, self.w_up.shape[0], gen)
-        dense_init_(self.w_down, self.w_down.shape[0], gen)
+        for w in ((self.w_up, self.w_down) if self.variant == "gelu"
+                  else (self.w_gate, self.w_up, self.w_down)):
+            dense_init_(w, w.shape[0], gen)
 
     def forward(self, x):
         """Apply the block to the last axis of ``x``."""
         return mlp(self, x)
 
 
+MLP_VARIANTS = ("swiglu", "geglu", "gelu")
+
+
+def gelu(x):
+    """GELU in its tanh form (the JAX package's ``approximate=True``)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp(p: MLP, x):
-    """SwiGLU MLP with the weights of ``p`` (fp32 or int8)."""
-    return matmul(F.silu(matmul(x, p.w_gate)) * matmul(x, p.w_up), p.w_down)
+    """The MLP of ``p``'s variant with its weights (fp32 or int8)."""
+    if p.variant == "gelu":
+        return matmul(gelu(matmul(x, p.w_up)), p.w_down)
+    act = F.silu if p.variant == "swiglu" else gelu
+    return matmul(act(matmul(x, p.w_gate)) * matmul(x, p.w_up), p.w_down)
 
 
 def embed(table, tokens):

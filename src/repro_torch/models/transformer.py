@@ -1,5 +1,9 @@
-"""Dense LLaMA-style decoder: the dense subset of the JAX package's
-``repro/models/transformer.py``.
+"""Decoder of the attention families: the dense (GQA, with or without QKV
+bias; SwiGLU, GeGLU or GELU MLP), MoE and MLA subset of the JAX package's
+``repro/models/transformer.py``.  The reference's layer layout (dense
+``prefix`` layers for a MoE config's ``first_dense``, then the scanned
+``stack``) is one ``DecoderLayer`` per layer here, each with an MLP or a
+MoE block (``config.layer_is_moe``).
 
 ``Transformer`` holds the weights in ``nn.Module``s with the JAX layouts
 (one ``DecoderLayer`` per layer in an ``nn.ModuleList``, where the JAX
@@ -25,10 +29,13 @@ and ``remap_tree_cache_rows`` (the per-row post-prune compaction).
 
 Caches are lists with one ``{"k", "v"}`` dict of [B, L, KV, hd] per layer
 (plus ``{"k_scale", "v_scale"}`` [B, L, KV] for an int8 model, whose K/V
-are int8), updated in place (see ``attention``).  A leaf may instead be
-block-paged (``models.paging.Paged``); every function here takes dense
-and paged leaves alike, and the paged ones reach the layers as they are
-(the port has no layer scan, so nothing densifies them).  Row offsets
+are int8; ``{"c_kv" [B, L, r], "k_rope" [B, L, rope]}`` for MLA), updated
+in place (see ``attention``).  Every leaf keeps its length on axis 1, so
+the row helpers below take every leaf alike (the reference's
+``CACHE_LEN_AXIS_FROM_END`` exists for its stacked layers).  A leaf may
+instead be block-paged (``models.paging.Paged``); every function here
+takes dense and paged leaves alike, and the paged ones reach the layers
+as they are (the port has no layer scan, so nothing densifies them).  Row offsets
 (cache lengths, tree write offsets) are host ints, so every dense write is
 checked to fit before it is made; bounds that the kernels read are built
 once per step on the model's device.
@@ -46,37 +53,52 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import paging
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, RMSNorm, embed, embed_init_,
-                                       mlp, param, unembed, wide)
+from repro_torch.models.layers import (MLP, MLP_VARIANTS, RMSNorm, embed,
+                                       embed_init_, mlp, param, unembed,
+                                       wide)
+from repro_torch.models.moe import MoE, moe_forward
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration outside the port's dense subset."""
+    """Raise for a configuration outside what the port runs: decoders of
+    attention layers (GQA with or without QKV bias, or MLA) and MLP or MoE
+    feed-forward blocks; int8 for dense attention only.  Recurrent
+    (ssm, rglru) and modality (encoder, prefix tokens) families are the
+    next slice of the port."""
     bad = [name for name, on in (
-        ("mla", cfg.mla is not None), ("moe", cfg.moe is not None),
         ("ssm", cfg.ssm is not None), ("rglru", cfg.rglru is not None),
-        ("encoder", cfg.encoder is not None), ("qkv_bias", cfg.qkv_bias),
-        (f"quant={cfg.quant}", cfg.quant not in ("", "int8")),
+        ("encoder", cfg.encoder is not None),
         ("prefix_tokens", cfg.prefix_tokens > 0),
-        (f"mlp_variant={cfg.mlp_variant}", cfg.mlp_variant != "swiglu"),
-        (f"family={cfg.family}", cfg.family != "dense")) if on]
+        (f"family={cfg.family}", cfg.family not in ("dense", "moe")),
+        (f"mlp_variant={cfg.mlp_variant}",
+         cfg.mlp_variant not in MLP_VARIANTS)) if on]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense swiglu decoders (fp32 or "
-            f"int8) only, not "
-            f"{', '.join(bad)}")
+            f"{cfg.name}: the port runs dense, MoE and MLA decoders; "
+            f"{', '.join(bad)} (recurrent and modality families) come in "
+            "the next slice of the port")
+    if cfg.quant not in ("", "int8"):
+        raise NotImplementedError(f"{cfg.name}: quant={cfg.quant!r}")
+    if cfg.quant == "int8" and (cfg.moe is not None or cfg.mla is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: int8 serving supports dense attention only")
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + SwiGLU MLP block."""
+    """Pre-norm attention (GQA, or MLA) + feed-forward block (an MLP of
+    the config's variant, or MoE when ``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, moe: bool = False):
         super().__init__()
+        self.cfg = cfg
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.mixer = attn.Attention(cfg, device)
+        self.mixer = (attn.MLAttention(cfg, device) if cfg.mla is not None
+                      else attn.Attention(cfg, device))
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, device,
-                       quant=cfg.quant == "int8")
+        self.ffn = (MoE(cfg, device) if moe else
+                    MLP(cfg.d_model, cfg.d_ff, device,
+                        quant=cfg.quant == "int8",
+                        variant=cfg.mlp_variant))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Draw the layer's weights from ``gen``."""
@@ -109,8 +131,11 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.lm_head = (None if cfg.tie_embeddings
                         else Embedding(cfg.vocab_size, cfg.d_model, device))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        # the reference's layout (``prefix`` dense layers below a MoE
+        # ``stack``) is one DecoderLayer per layer here
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device,
+                                                 cfg.layer_is_moe(i))
+                                    for i in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -181,21 +206,31 @@ def _tokens(model: Transformer, tokens):
     return torch.as_tensor(tokens, device=model.device).long()
 
 
-def _block(i: int, layer: DecoderLayer, x, attend):
-    """Residual block ``i``; ``attend(i, mixer, h)`` is its attention."""
+def _block(i: int, layer: DecoderLayer, x, attend, aux=None):
+    """Residual block ``i``; ``attend(i, mixer, h)`` is its attention.  A
+    MoE block appends its router term to ``aux`` when a list is given."""
     x = x + attend(i, layer.mixer, layer.norm1(x))
-    return x + mlp(layer.ffn, layer.norm2(x))
+    h = layer.norm2(x)
+    if isinstance(layer.ffn, MoE):
+        y, a = moe_forward(layer.ffn, layer.cfg, h)
+        if aux is not None:
+            aux.append(a)
+        return x + y
+    return x + mlp(layer.ffn, h)
 
 
-def _run_layers(model: Transformer, x, attend, *, remat: bool = False):
+def _run_layers(model: Transformer, x, attend, *, remat: bool = False,
+                aux=None):
     """The residual blocks in order; with ``remat`` each block keeps only
     its input for backward and recomputes the rest there
-    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
+    MoE blocks append their router terms to ``aux`` (a list) when given."""
     for i, layer in enumerate(model.layers):
         if remat:
-            x = checkpoint(_block, i, layer, x, attend, use_reentrant=False)
+            x = checkpoint(_block, i, layer, x, attend, aux,
+                           use_reentrant=False)
         else:
-            x = _block(i, layer, x, attend)
+            x = _block(i, layer, x, attend, aux)
     return x
 
 
@@ -208,9 +243,10 @@ def _logits(model: Transformer, x):
     return unembed(_head(model), model.final_norm(x))
 
 
-def _hidden(model: Transformer, tokens, *, remat: bool = False):
+def _hidden(model: Transformer, tokens, *, remat: bool = False, aux=None):
     """Training forward up to the final norm: hidden states [B,S,d] under
-    autograd, attention in plain PyTorch (``attn.attn_train``)."""
+    autograd, attention in plain PyTorch (``attn.attn_train``); MoE router
+    terms appended to ``aux`` when it is a list."""
     cfg = model.cfg
     tokens = _tokens(model, tokens)
     b, s = tokens.shape
@@ -221,14 +257,25 @@ def _hidden(model: Transformer, tokens, *, remat: bool = False):
                                window=cfg.sliding_window)
 
     x = _run_layers(model, embed(model.embed.table, tokens), attend,
-                    remat=remat)
+                    remat=remat, aux=aux)
     return model.final_norm(x)
 
 
-def forward(model: Transformer, tokens, *, remat: bool = False):
-    """Training forward: logits [B,S,V] of every position (dense models
-    only: no prefix embeddings, encoder or MoE aux loss)."""
-    return unembed(_head(model), _hidden(model, tokens, remat=remat))
+def forward(model: Transformer, tokens, *, remat: bool = False,
+            with_aux: bool = False):
+    """Training forward: logits [B,S,V] of every position (no prefix
+    embeddings or encoder); with ``with_aux``, (logits, the summed MoE
+    router term), as the reference's ``forward`` returns (0 without MoE
+    layers).  ``loss_fn`` does not add the router term yet."""
+    aux = []
+    logits = unembed(_head(model), _hidden(model, tokens, remat=remat,
+                                           aux=aux))
+    if not with_aux:
+        return logits
+    total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    for a in aux:
+        total = total + a
+    return logits, total
 
 
 def _ce_sum(table, hc, yc):
@@ -361,7 +408,8 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
                                 dtype=torch.int32)
     write_at = host_rows(tree_write_index, b)
     # every layer's tree cache takes the layer at the same rows
-    write_rows = attn.write_index(tree_caches[0]["k"], write_at, b, n)
+    write_rows = attn.write_index(next(iter(tree_caches[0].values())),
+                                  write_at, b, n)
     x = embed(model.embed.table, node_tokens)
 
     def attend(i, mixer, h):

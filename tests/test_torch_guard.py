@@ -29,7 +29,12 @@ db = ["models.paging", "kernels.paged", "core.dynbatch",
       "serving.scheduler", "serving.executor", "serving.dynbatch",
       "core.baselines", "core.chain", "core.sim", "data.pipeline",
       "optim.adamw", "launch.steps", "launch.train", "launch.pipeline",
-      "launch.sharded_check", "counting"]
+      "launch.sharded_check", "counting", "models.moe",
+      "configs.deepseek_v2_236b", "configs.gemma_7b",
+      "configs.moonshot_v1_16b_a3b", "configs.qwen1_5_32b",
+      "configs.qwen2_5_32b", "configs.qwen2_moe_a2_7b",
+      "configs.internvl2_26b", "configs.mamba2_130m",
+      "configs.recurrentgemma_9b", "configs.whisper_base"]
 missing = [m for m in db if "repro_torch." + m not in sys.modules]
 assert not missing, missing
 """

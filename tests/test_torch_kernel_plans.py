@@ -34,7 +34,7 @@ def _flash_inputs(rng, b, h, kvh, n, hd, length):
     return q, k, v
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("causal,window", [(False, 0), (True, 0),
                                            (False, 40)])
 def test_chunk_plan_covers_every_attended_key(hd, causal, window):
@@ -95,6 +95,8 @@ def _chunk_partial(qs, k, v, valid):
 
 @pytest.mark.parametrize("hd,causal,window", [(128, False, 0),
                                               (64, False, 0),
+                                              (256, False, 0),
+                                              (256, True, 0),
                                               (128, True, 0),
                                               (128, False, 50)])
 def test_merging_chunks_in_order_equals_plain(hd, causal, window):

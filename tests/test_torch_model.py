@@ -235,13 +235,22 @@ def test_configs_keep_published_widths():
     assert t.rope_theta == d.rope_theta == 10000.0
     assert get_config("pipedec-draft", smoke=True) == \
         pipedec_pair.DRAFT_SMOKE
+    g = get_config("gemma-7b")
+    assert (g.num_layers, g.d_model, g.num_heads, g.num_kv_heads,
+            g.resolved_head_dim, g.d_ff, g.vocab_size, g.mlp_variant,
+            g.tie_embeddings) == (28, 3072, 16, 16, 256, 24576, 256000,
+                                  "geglu", True)
     with pytest.raises(KeyError):
-        get_config("gemma-7b")
+        get_config("gemma-9b")
 
 
 def test_unsupported_families_are_refused():
-    mla = dataclasses.replace(_tiny(), mla=MLAConfig(kv_lora_rank=16))
-    with pytest.raises(NotImplementedError, match="mla"):
+    ssm = dataclasses.replace(_tiny(), family="ssm")
+    with pytest.raises(NotImplementedError, match="ssm"):
+        tf.Transformer(port_cfg(ssm), "cpu")
+    mla = dataclasses.replace(_tiny(), mla=MLAConfig(kv_lora_rank=16),
+                              quant="int8")
+    with pytest.raises(NotImplementedError, match="dense attention"):
         tf.Transformer(port_cfg(mla), "cpu")
 
 

@@ -70,7 +70,7 @@ def _check_close(got, want):
 
 @pytest.mark.cuda_kernel
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("rep", [1, 4, 8])
 @pytest.mark.parametrize("t", [1, 33, 73, 105, 300])
 def test_tree_kernel_matches_plain_and_rows_alone(cuda, t, rep, hd, int8):
@@ -108,7 +108,7 @@ def _pools(dense, t, gen):
 
 @pytest.mark.cuda_kernel
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("t", [1, 33, 105, 300])
 def test_paged_tree_kernel_equals_dense(cuda, t, hd, int8):
     """The paged kernel over a shuffled pool (the tail of the last block
@@ -133,7 +133,7 @@ def test_paged_tree_kernel_equals_dense(cuda, t, hd, int8):
 @pytest.mark.cuda_kernel
 @pytest.mark.parametrize("paged_mode", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_merged_mode_equals_combine_lse(cuda, hd, int8, paged_mode):
     """``past=`` (the flash kernel's half) gives combine_lse over the two
     kernels' own halves, bit for bit, and the ops entry points are the

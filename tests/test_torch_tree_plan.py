@@ -21,11 +21,12 @@ import torch
 from repro_torch.kernels import flash, tree_block
 
 # the tree capacities of 4 and 8 stages (73, 105), MMA-tile and mask-word
-# edges, and the edges of one wave (128 keys at head_dim 128, 256 at 64)
-BUFFERS = [1, 31, 32, 33, 73, 105, 127, 128, 129, 256, 257, 300]
+# edges, and the edges of one wave (64 keys at head_dim 256, 128 at 128,
+# 256 at 64)
+BUFFERS = [1, 31, 32, 33, 64, 65, 73, 105, 127, 128, 129, 256, 257, 300]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("t", BUFFERS)
 def test_tree_plan_covers_every_key_once(t, hd):
     plan = tree_block.tree_plan(t, hd)
@@ -80,7 +81,7 @@ def _share_partial(qs, k, v, valid):
     return torch.einsum("bgrnl,bgld->bgrnd", p, v), m, p.sum(-1)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("t", [1, 33, 73, 105, 129, 300])
 def test_merging_warp_shares_in_order_equals_plain(t, hd):
     rng = np.random.default_rng(t + hd)
@@ -154,7 +155,7 @@ def _emulate_3xtf32_dot(a, b):
     return acc[2] + (acc[0] + acc[1])
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_3xtf32_product_meets_fp32(hd):
     """Scores q.k at the model's scale and P.V with probabilities in
     [0, 1]: within 1e-5 of the float64 product, as close as an fp32 sum."""
