@@ -268,6 +268,7 @@ STPP_NODES = 1 + STPP_DEPTH * STPP_WIDTH
 STPP_T = STPP_NODES + STPP_WIDTH
 # projections per layer per forward call, each one dequant_matmul launch
 PROJECTIONS = 7
+WHISPER_FRAMES = 1500     # whisper-base's encoder.max_source_positions
 # phase train: the JAX CLI's defaults (batch 8, seq 128, lr 3e-4) on the
 # trainer's corpus (seed 0, 2^18 bytes); the draft's steps (run with remat
 # off and on), the 1-layer target's; the steps before the timed median;
@@ -350,7 +351,8 @@ def cuda_ms(fn, batches: int = 21, per_batch: int = 10):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False):
+def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False,
+           shared_kv=False):
     """Least time (ms) for attention over ``valid`` [B,n,L] (query may
     attend key): every input byte read once (q, the K/V rows some query of
     the batch row attends, at 1 byte an element plus 4 bytes of scale per
@@ -358,8 +360,13 @@ def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False):
     merged past half), every output byte written once (o, m, l);
     operations 4*hd per (head, query, key) pair that is attended (QK and
     PV), each fp32 product three TF32 products on the tensor cores (both
-    attention kernels), at the TF32 peak."""
-    rows = int(valid.any(1).sum())                 # attended keys over B
+    attention kernels), at the TF32 peak. ``shared_kv``: the B rows read
+    one K/V row (batch stride 0), so a key some row attends is counted
+    once, not once per batch row."""
+    if shared_kv:
+        rows = int(valid.any(1).any(0).sum())      # distinct keys attended
+    else:
+        rows = int(valid.any(1).sum())             # attended keys over B
     kv_row = 2 * (hd + 4) if int8 else 2 * 4 * hd
     nbytes = 4 * (2 * b * h * n * hd + 2 * b * h * n) + rows * kvh * kv_row
     nbytes += extra_bytes
@@ -440,7 +447,10 @@ def kernel_cases(torch, dev):
         return out
 
     def flash_case(name, b, h, kvh, n, hd, length, kv_len, *, causal=False,
-                   window=0, main=False, int8=False):
+                   window=0, main=False, int8=False, shared_kv=False):
+        """``shared_kv``: one K/V batch row expanded over the B rows of q
+        (batch stride 0), as a DB bucket's cross-attention reads the one
+        encoder output."""
         q = rnd(b, n, h, hd).transpose(1, 2)          # [B,H,n,hd] view
         kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         if causal:
@@ -449,7 +459,10 @@ def kernel_cases(torch, dev):
             qpos = (kvl.long() - 1)[:, None] + torch.arange(n, device=dev) // 2
         row = ("flash_attention_lse" + (" int8" if int8 else "")
                + (HD256 if hd > 128 else ""))
-        return name, row, dict(q=q, **kv(b, length, kvh, hd, int8),
+        kvs = kv(1 if shared_kv else b, length, kvh, hd, int8)
+        if shared_kv:
+            kvs = {k: x.expand(b, *x.shape[1:]) for k, x in kvs.items()}
+        return name, row, dict(q=q, **kvs,
                                kv_len=kvl, qpos=qpos.to(torch.int32),
                                causal=causal, window=window, main=main)
 
@@ -518,6 +531,14 @@ def kernel_cases(torch, dev):
                    [200], int8=True),
         tree_case("tree int8 hd256/gemma B=1 T=105", 1, 16, 16, 8, 256, 105,
                   main=True, int8=True),
+        # Whisper-base (8 heads, 8 KV heads, head_dim 64 through the 128
+        # instance): the encoder's bidirectional self-attention over its
+        # 1500 frames, and a DB bucket's cross-attention, 3 rows of a tree
+        # layer over the one encoder output (K/V batch stride 0)
+        flash_case("flash/encoder whisper T=1500", 1, 8, 8, WHISPER_FRAMES,
+                   64, WHISPER_FRAMES, [WHISPER_FRAMES]),
+        flash_case("flash/cross whisper B=3 n=8 T=1500", 3, 8, 8, 8, 64,
+                   WHISPER_FRAMES, [WHISPER_FRAMES] * 3, shared_kv=True),
     ]
 
 
@@ -626,7 +647,8 @@ def phase_kernels(state):
         def library(q=q, k=lib_k, v=lib_v, lib_mask=lib_mask):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask,
                                                   enable_gqa=rep > 1)
-        bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8)
+        bound_ms, bound_by = _bound(valid, b, h, kvh, n, hd, extra, int8,
+                                    shared_kv=b > 1 and k.stride(0) == 0)
         (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_eager = cuda_ms(library)
         row = {"phase": "kernels", "case": name, "kernel": row_name,
@@ -1214,7 +1236,10 @@ def read_launches(*bundles, paged=False):
     ones.  An MLA model (DeepSeek) attends in plain PyTorch, with no
     launch; a model whose head_dim is over 128 (Gemma) launches the
     head_dim 256 instances, counted in the ``hd256`` rows as well.  A
-    bundle that serves as both target and draft is counted once."""
+    bundle carrying an encoder output (Whisper) also launches flash once
+    per layer of every model call for its cross-attention, on a paged
+    arena too (the encoder output is one dense tensor).  A bundle that
+    serves as both target and draft is counted once."""
     launches = {row: getattr(fn, attr) for row, fn, attr in _counters()}
     expect = collections.Counter(dict.fromkeys(launches, 0))
     uniq = {id(b): b for b in bundles if b is not None}.values()
@@ -1225,12 +1250,14 @@ def read_launches(*bundles, paged=False):
         trees = calls.get("tree_verify", 0) + (0 if paged else rows)
         forward = sum(calls.get(k, 0) for k in ("prefill", "decode",
                                                 "prefill_chunk")) + trees
+        cross = b.cfg.num_layers if getattr(b, "cross_kv", None) else 0
         int8 = b.cfg.quant == "int8"
         modes = [" int8" if int8 else ""]
         if b.cfg.resolved_head_dim > 128:
             modes.append(modes[0] + HD256)
         for mode in modes:
-            expect["flash_attention_lse" + mode] += layers * forward
+            expect["flash_attention_lse" + mode] += layers * forward + \
+                cross * (forward + (rows if paged else 0))
             expect["tree_block_attention" + mode] += layers * trees
             if paged:
                 expect["paged_flash_attention_lse" + mode] += layers * rows
@@ -2656,6 +2683,68 @@ def stage_calls(target, draft):
             act.numel() * act.element_size())
 
 
+def empty_row_calls(target):
+    """A target layer's tree-verify attention at ``serve-db``'s shapes (a
+    bucket of ``DB_SLOTS`` rows over ``DB_MAX_LEN``-row caches, 200 and 37
+    committed, and the width-8 tree buffer at its fourth layer), its last
+    slot empty (``cache_len`` 0, an all-false mask, no pages), on the
+    dense and on the paged arena, each with the empty row's select
+    (``empty``: the reference's mean of V) and without it (the kernels'
+    zero row), so that the select's cost a layer is the difference; and
+    ``attention.empty_rows``, built once a verify for all layers."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pipedec import PipeDecConfig
+    from repro_torch.models import attention as attn
+    from repro_torch.models import paging
+
+    cfg, dev = target.cfg, target.device
+    b, w, past = DB_SLOTS, 8, 200
+    t_rows = PipeDecConfig(n_stages=8, width=w, branch=4).tree_buffer_capacity
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(6)
+    mixer = target.model.layers[0].mixer
+
+    def filled(length):
+        cache = attn.init_kv_cache(cfg, b, length, dev)
+        for buf in cache.values():
+            buf.normal_(generator=gen)
+        return cache
+
+    def paged(cache):
+        length = next(iter(cache.values())).shape[1]
+        mb = paging.n_blocks(length, PAGE)
+        table = 1 + rng.permutation(b * mb).reshape(b, mb)
+        table[-1] = 0                        # the empty slot holds no page
+        return {name: paging.make_paged(buf, table, PAGE)
+                for name, buf in cache.items()}
+
+    dense = (filled(DB_MAX_LEN), filled(t_rows))
+    arenas = {"dense": dense, "paged": tuple(paged(c) for c in dense)}
+    x = torch.randn(b, w, cfg.d_model, generator=gen, device=dev)
+    mlen = torch.tensor([past, 37, 0], dtype=torch.int32, device=dev)
+    positions = (mlen.long() + 3)[:, None].expand(b, w)
+    mask = torch.rand(b, w, t_rows, generator=gen, device=dev) < 0.3
+    mask[:, :, 0] = True                     # the root
+    mask[-1] = False                         # the empty slot's rows
+    write_at = [1 + 3 * w] * b
+
+    def build(caches):
+        return lambda: attn.empty_rows([b - 1], mask, *caches, write_at)
+
+    def call(caches, empty):
+        return lambda: attn.attn_tree_verify(
+            mixer, cfg, x, positions, model_cache=caches[0],
+            model_len=mlen, tree_cache=caches[1], tree_write_index=write_at,
+            tree_mask=mask, window=cfg.sliding_window, empty=empty)
+    calls = {}
+    for arena, caches in arenas.items():
+        calls[f"{arena}_zero"] = call(caches, None)
+        calls[f"{arena}_select"] = call(caches, build(caches)())
+        calls[f"{arena}_build"] = build(caches)
+    return calls
+
+
 def _device_profile(fn, calls: int = 5, top: int = 0):
     """(busy ms, top device operations) of one call of ``fn``: the sum of
     the durations of the kernels and copies it runs on the card in a
@@ -2744,6 +2833,7 @@ def phase_sim(state):
     that every input of the model comes from the 8 stages it prices."""
     import dataclasses
     import math
+    import torch
     from repro_torch.core import sim
 
     target, draft = state["target"], state["draft"]
@@ -2767,6 +2857,16 @@ def phase_sim(state):
         t_draft=times["draft_tree_verify_ms"] / 1e3,
         t_sync=times["exit_step_ms"] / 1e3)
     pp_ms = 1e3 * sim.pp_latency_per_token(hw)
+    empty_calls = empty_row_calls(target)
+    outs = {name: fn()[0] for name, fn in empty_calls.items()
+            if not name.endswith("_build")}
+    live_equal = all(torch.equal(outs[f"{a}_zero"][:-1],
+                                 outs[f"{a}_select"][:-1])
+                     for a in ("dense", "paged"))
+    empty = {"eager_ms": {name: _eager_ms(fn)
+                          for name, fn in empty_calls.items()},
+             "device_busy_ms": {name: _device_profile(fn)[0]
+                                for name, fn in empty_calls.items()}}
     modelled, beside = {}, {}
     for regime, dec, stpp, chain in (
             ("self-draft", "self-draft-pipedec-8", "self-draft-stpp",
@@ -2786,13 +2886,21 @@ def phase_sim(state):
             "chain": measured[chain]["chain_ms_per_token"]}
     values = [v for m in modelled.values() for k, v in m.items()
               if k != "inputs"] + list(times.values()) + list(busy.values())
-    ok = all(math.isfinite(v) and v > 0 for v in values)
+    values += [v for m in empty.values() for v in m.values()]
+    ok = all(math.isfinite(v) and v > 0 for v in values) and live_equal
     emit({"phase": "sim", "ok": ok,
           "model": "core/sim.py priced with this card's layer times: "
                    "LLaMA-70B's 80 layers over 8 stages of 10, hand-off at "
                    "the card's device-to-device copy rate (a model, not a "
                    "measurement of a pipeline)",
           "stage_times": times, "device_busy": busy,
+          "empty_row_select": dict(
+              empty, live_rows_equal=live_equal,
+              case=f"one target layer's tree-verify attention, "
+                          f"bucket {DB_SLOTS} over {DB_MAX_LEN}-row caches, "
+                          f"the last slot empty; with the F2 select and "
+                          f"without (the kernels' zero row); _build: "
+                          f"attention.empty_rows, once a verify"),
           "exit_step_ms": {"median": times["exit_step_ms"],
                            "min": min(exit_ms), "max": max(exit_ms),
                            "n": len(exit_ms)},
@@ -2808,7 +2916,9 @@ def phase_sim(state):
                          f"chain, their phases"})
     if not ok:
         raise AssertionError("sim: every stage time, device busy time and "
-                             "modelled value must be finite and positive")
+                             "modelled value must be finite and positive, "
+                             "and the F2 select must leave the live rows "
+                             "as they are")
 
 
 # ---------------------------------------------------------------------------
@@ -2969,14 +3079,22 @@ def phase_cli(state):
 FAMILY_ARCHS = (("qwen2.5-32b", 8), ("qwen1.5-32b", 8), ("gemma-7b", 28),
                 ("moonshot-v1-16b-a3b", 8), ("qwen2-moe-a2.7b", 24),
                 ("deepseek-v2-236b", 3))
+# the modality families: InternVL2-26B's language model cut to 8 of its 48
+# layers (1.56 GB a layer in fp32; 48 would not fit the card), with a
+# seeded 256-token vision prefix; Whisper-base whole (6 decoder layers, and
+# 6 encoder layers over seeded [1, 1500, 512] frames)
+FAMILY_MODAL_ARCHS = (("internvl2-26b", 8), ("whisper-base", 6))
 FAMILY_PROMPT_LENS = (64, 128, 96)     # PipeDec takes the first two
-FAMILY_NEW_TOKENS = 32
-FAMILY_DB_ARCHS = ("gemma-7b", "moonshot-v1-16b-a3b", "deepseek-v2-236b")
+# 16 new tokens a family run (8 PipeDec timesteps a token with the random
+# draft): the whole script must stay well inside its 1200 s limit
+FAMILY_NEW_TOKENS = 16
+FAMILY_DB_ARCHS = ("gemma-7b", "moonshot-v1-16b-a3b", "deepseek-v2-236b",
+                   "internvl2-26b", "whisper-base")
 FAMILY_DB_ARRIVALS = (0, 0, 3)
 FAMILY_DB_NEW_TOKENS = 8
 FAMILY_INT8_ARCHS = ("gemma-7b", "qwen2.5-32b")
 FAMILY_INT8_NEW_TOKENS = 8
-FAMILY_MAX_LEN = 256
+FAMILY_MAX_LEN = 256      # cache rows past a vision prefix
 
 
 def _family_cfgs(arch, *, dropless=False):
@@ -2989,7 +3107,8 @@ def _family_cfgs(arch, *, dropless=False):
     from repro_torch.configs import get_config
     from repro_torch.models.config import ModelConfig
     cfg = get_config(arch)
-    cfg = dataclasses.replace(cfg, num_layers=dict(FAMILY_ARCHS)[arch])
+    cfg = dataclasses.replace(cfg, num_layers=dict(
+        FAMILY_ARCHS + FAMILY_MODAL_ARCHS)[arch])
     if dropless and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
@@ -2999,12 +3118,35 @@ def _family_cfgs(arch, *, dropless=False):
     return cfg, draft
 
 
-def _family_bundles(arch, *, dropless=False):
-    """Seeded random target and draft on the card."""
+def _family_bundles(arch, *, dropless=False, modal=None):
+    """Seeded random target and draft on the card.  A VLM target carries
+    a seeded vision prefix, an encoder-decoder target the encoder output
+    of seeded frames (the draft neither, as in the reference); ``modal``
+    (a dict) gets the encoder's eager ms per call, its flash launches per
+    call and the modality input's shape."""
     from repro_torch.core.speculative import ModelBundle
+    from repro_torch.models import encdec, frontends
     from repro_torch.models import transformer as tf
     cfg, dcfg = _family_cfgs(arch, dropless=dropless)
-    return (ModelBundle(tf.init_model(cfg, seed=0, device="cuda")),
+    model = tf.init_model(cfg, seed=0, device="cuda")
+    kw, info = {}, {}
+    if cfg.prefix_tokens:
+        kw["prefix_embeds"] = frontends.stub_vision_prefix(cfg, 1, seed=2)
+        info["prefix"] = list(kw["prefix_embeds"].shape)
+    if cfg.is_encdec:
+        frames = frontends.stub_audio_frames(cfg, 1, seed=2)
+        zero_launches()
+        kw["enc_out"] = encdec.encode(model.encoder, cfg, frames)
+        launches, _ = read_launches()
+        info.update(frames=list(frames.shape),
+                    encoder_layers=cfg.encoder.num_layers,
+                    encoder_flash_launches=launches["flash_attention_lse"],
+                    encoder_ms=_eager_ms(lambda: encdec.encode(
+                        model.encoder, cfg, frames), warmup=1, batches=5,
+                        per_batch=2))
+    if modal is not None:
+        modal.update(info)
+    return (ModelBundle(model, **kw),
             ModelBundle(tf.init_model(dcfg, seed=1, device="cuda")))
 
 
@@ -3044,13 +3186,19 @@ def _free(*names, state=None):
     torch.cuda.empty_cache()
 
 
+def _family_max_len(cfg):
+    """Cache rows of a family run: FAMILY_MAX_LEN past the vision prefix."""
+    return FAMILY_MAX_LEN + cfg.prefix_tokens
+
+
 def _autoregressive(target, prompts, new_tokens):
     """Autoregressive tokens of each prompt and the wall ms per token."""
     import torch
     from repro_torch.core.baselines import generate_autoregressive
     t0 = time.perf_counter()
     want = [generate_autoregressive(target, p, new_tokens,
-                                    max_len=FAMILY_MAX_LEN) for p in prompts]
+                                    max_len=_family_max_len(target.cfg))
+            for p in prompts]
     torch.cuda.synchronize()
     return want, 1e3 * (time.perf_counter() - t0) / (len(prompts)
                                                      * new_tokens)
@@ -3066,7 +3214,7 @@ def _family_pipedec(target, draft, prompts, want, new_tokens, path):
     engine = ServingEngine(target, draft, mode="pipedec",
                            pipedec=PipeDecConfig(n_stages=8, width=8,
                                                  branch=4),
-                           max_len=FAMILY_MAX_LEN)
+                           max_len=_family_max_len(target.cfg))
     for uid, p in enumerate(prompts):
         engine.submit(Request(uid, p, new_tokens))
     zero_launches(target, draft)
@@ -3095,15 +3243,21 @@ def phase_family(arch):
     against autoregressive decoding (near-tie rule); the target as its own
     draft, acceptance 1.0; flash and tree launches layers x calls (0 for
     the MLA target, which attends in plain PyTorch; Gemma's through the
-    head_dim 256 instances); wall ms per token of both and of
-    autoregressive decoding; peak memory."""
+    head_dim 256 instances; Whisper's plus one flash launch a layer for
+    the cross-attention of every call, and the encoder's, one a layer,
+    counted apart); wall ms per token of both and of autoregressive
+    decoding, the encoder's ms; peak memory.  InternVL2 and Whisper carry
+    their seeded prefix or encoder output in the target bundle, and the
+    committed length counts the prefix for the draft too (the
+    reference's rule)."""
     def run(state):
         import torch
         from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
         _free("target", "draft", "target_int8", "draft_int8", state=state)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        target, draft = _family_bundles(arch)
+        modal = {}
+        target, draft = _family_bundles(arch, modal=modal)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         cfg = target.cfg
@@ -3118,7 +3272,7 @@ def phase_family(arch):
         # the target as its own draft: every prediction hits
         eng = PipeDecEngine(target, target, PipeDecConfig(n_stages=8,
                                                           width=8, branch=4),
-                            max_len=FAMILY_MAX_LEN)
+                            max_len=_family_max_len(cfg))
         zero_launches(target)
         t0 = time.perf_counter()
         out, st = eng.generate(prompts[0], FAMILY_NEW_TOKENS)
@@ -3128,6 +3282,10 @@ def phase_family(arch):
         self_same, self_tie = _lossless(target, prompts[0], out, want[0])
         self_ok = (st.acceptance == 1.0 and self_same
                    and launches == expect)
+        if modal.get("encoder_layers"):
+            modal["encoder_ok"] = (modal["encoder_flash_launches"]
+                                   == modal["encoder_layers"])
+            self_ok = self_ok and modal["encoder_ok"]
         ok = ok and self_ok
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         emit({"phase": f"family-{arch}", "ok": ok, "target": cfg.name,
@@ -3144,6 +3302,7 @@ def phase_family(arch):
                   "shared": cfg.moe.num_shared_experts,
                   "first_dense": cfg.moe.first_dense,
                   "capacity_factor": cfg.moe.capacity_factor},
+              "modality": modal or None,
               "pipedec": {"n_stages": 8, "width": 8, "branch": 4},
               "new_tokens": FAMILY_NEW_TOKENS, "init_s": init_s,
               "autoregressive_ms_per_token": ar_ms,
@@ -3169,8 +3328,10 @@ def _full_layers(arch):
 
 def phase_family_db(state):
     """SpecPipe-DB (3 slots, arrivals 0, 0, 3, the local executor) for
-    Gemma-7b, Moonlight and DeepSeek-V2 at FAMILY_ARCHS depth, dense and
-    paged arenas: paged equals dense bit for bit (tokens, GenStats), tokens
+    Gemma-7b, Moonlight, DeepSeek-V2, InternVL2 (its vision prefix serving
+    every slot) and Whisper (its encoder output cross-attended by every
+    row of a bucket) at their family-phase depths, dense and paged
+    arenas: paged equals dense bit for bit (tokens, GenStats), tokens
     equal autoregressive decoding, launches as the calls imply.  MoE runs
     at dropless capacity here (a batched verify routes up to 24 tokens
     together, which the published capacity may drop, in the reference
@@ -3230,6 +3391,9 @@ def phase_family_db(state):
                   "arena": "paged" if paged else "dense",
                   "capacity_factor": (cfg.moe.capacity_factor
                                       if cfg.moe is not None else None),
+                  "modality": ("prefix" if target.prefix_embeds is not None
+                               else "encoder output"
+                               if target.enc_out is not None else None),
                   "slots": DB_SLOTS, "paged_equals_dense": same_run,
                   "timesteps": st.timesteps,
                   "tokens_per_timestep": st.tokens_per_timestep,
@@ -3421,7 +3585,8 @@ def main() -> int:
                          phase_serve_db_int8_overlap),
                         ("cli", phase_cli),
                         *((f"family-{arch}", phase_family(arch))
-                          for arch, _ in FAMILY_ARCHS),
+                          for arch, _ in FAMILY_ARCHS
+                          + FAMILY_MODAL_ARCHS),
                         ("family-db", phase_family_db),
                         ("family-int8", phase_family_int8),
                         ("sharded-check", phase_sharded_check)):

@@ -6,10 +6,16 @@ with ``checkpoint.io.load_pytree``.  It is
 
   {"embed": {"table"}, "final_norm": {"scale"}, ["lm_head": {"table"}],
    ["prefix": [[sub-layer], ...]],   (a MoE config's first_dense layers)
-   "stack": [sub-layer]}             (every leaf with a leading layer axis)
+   "stack": [sub-layer],             (every leaf with a leading layer axis)
+   ["encoder": {"layers": {...}, "final_norm": {"scale"}}]}
+                                     (an encoder-decoder's encoder tower)
 
-where a sub-layer is {"norm1": {"scale"}, "mixer": {...}, "norm2":
-{"scale"}, "ffn": {...}}: the mixer holds w_q, w_k, w_v, w_o (and b_q,
+where a sub-layer is {"norm1": {"scale"}, "mixer": {...}, ["cross_norm":
+{"scale"}, "cross": {...}], "norm2": {"scale"}, "ffn": {...}}: the
+cross-attention of an encoder-decoder holds plain GQA weights; the
+encoder's ``layers`` are {"norm1", "attn", "norm2", "mlp"} with every
+leaf stacked over the encoder's layers (no ``prefix`` part), which are
+``model.encoder.layers[j]`` here.  The mixer holds w_q, w_k, w_v, w_o (and b_q,
 b_k, b_v with QKV bias) or MLA's w_dq, w_q, w_dkv, w_kr, w_ukv, w_o; the
 ffn an MLP's w_gate (not for GELU), w_up, w_down, or MoE's router, 3-D
 w_gate/w_up/w_down and "shared" (an MLP).  Layer ``i`` of the port is
@@ -115,10 +121,12 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
     (fp32, or quantized for a ``quant="int8"`` model)."""
     cfg = model.cfg
     extra = set(params) - {"embed", "final_norm", "lm_head", "prefix",
-                           "stack"}
+                           "stack", "encoder"}
     if extra:
         raise ValueError(f"not a decoder pytree of the port's families: "
                          f"extra keys {extra}")
+    if ("encoder" in params) != (model.encoder is not None):
+        raise ValueError("encoder presence does not match the config")
     if ("lm_head" in params) == cfg.tie_embeddings:
         raise ValueError("lm_head presence does not match tie_embeddings")
     _copy(model.embed.table, params["embed"]["table"], "embed.table")
@@ -148,7 +156,33 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
             for key in path:
                 src = src[key]
             _fill(dst, src, j, f"layers[{i}].{'.'.join(path)}")
+    if model.encoder is not None:
+        _load_encoder(model.encoder, params["encoder"])
     return model
+
+
+def _load_encoder(encoder, params: Mapping) -> None:
+    """Fill the encoder tower from the reference's stacked
+    ``{"layers", "final_norm"}``."""
+    _copy(encoder.final_norm.scale, params["final_norm"]["scale"],
+          "encoder.final_norm.scale")
+    theirs = set(_jax_paths(params["layers"]))
+    n = np.asarray(next(iter(_leaf_arrays(params["layers"])))).shape[0]
+    if n != len(encoder.layers):
+        raise ValueError(f"encoder has {n} layers, config "
+                         f"{len(encoder.layers)}")
+    for j, layer in enumerate(encoder.layers):
+        ours = dict(_layer_leaves(layer))
+        if set(ours) != theirs:
+            raise ValueError(
+                f"encoder.layers[{j}]: JAX leaves "
+                f"{sorted(theirs - set(ours))} have no port weight, port "
+                f"weights {sorted(set(ours) - theirs)} no JAX leaf")
+        for path, dst in ours.items():
+            src = params["layers"]
+            for key in path:
+                src = src[key]
+            _fill(dst, src, j, f"encoder.layers[{j}].{'.'.join(path)}")
 
 
 def _leaf_arrays(tree):
@@ -189,7 +223,8 @@ def to_jax_params(model: Transformer) -> dict:
     """The JAX parameter pytree of an fp32 ``model`` as numpy arrays:
     ``prefix`` (a MoE config's dense ``first_dense`` layers, one
     ``[sub-layer]`` list each) and ``stack`` (a one-element list whose
-    leaves carry a leading layer axis), no ``lm_head`` when the
+    leaves carry a leading layer axis), ``encoder`` (its layers stacked
+    the same way) for an encoder-decoder, no ``lm_head`` when the
     embeddings are tied.  ``load_jax_params`` of the result gives the same
     model back, value for value."""
     cfg = model.cfg
@@ -208,7 +243,16 @@ def to_jax_params(model: Transformer) -> dict:
                          for layer in layers[:n_prefix]]
     stacked = layers[n_prefix:]
     if stacked:
-        per = [dict(_layer_leaves(layer)) for layer in stacked]
-        out["stack"] = [_nest((path, np.stack([_numpy(p[path]) for p in per]))
-                              for path in per[0])]
+        out["stack"] = [_stacked(stacked)]
+    if model.encoder is not None:
+        out["encoder"] = {
+            "layers": _stacked(model.encoder.layers),
+            "final_norm": {"scale": _numpy(model.encoder.final_norm.scale)}}
     return out
+
+
+def _stacked(layers) -> dict:
+    """The layers' leaves, each stacked along a leading layer axis."""
+    per = [dict(_layer_leaves(layer)) for layer in layers]
+    return _nest((path, np.stack([_numpy(p[path]) for p in per]))
+                 for path in per[0])

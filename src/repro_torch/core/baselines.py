@@ -31,7 +31,7 @@ def generate_autoregressive(target: ModelBundle, prompt: np.ndarray,
     decode steps.  Returns the 1 + max_new_tokens committed tokens."""
     cache = target.init_cache(1, max_len)
     logits, cache = target.prefill(np.asarray(prompt, np.int64)[None], cache)
-    model_len = len(prompt)
+    model_len = target.prefix_len + len(prompt)
     tok = select_token(logits[0], sampling, generator)
     out = [tok]
     for _ in range(max_new_tokens):
@@ -99,7 +99,7 @@ class STPPEngine:
         prompt_b = np.asarray(prompt, np.int64)[None]
         t_logits, t_cache = tgt.prefill(prompt_b, t_cache)
         _, d_cache = drf.prefill(prompt_b, d_cache)
-        model_len = len(prompt)
+        model_len = tgt.prefix_len + len(prompt)   # the reference's rule
 
         root = select_token(t_logits[0], s.sampling, generator)
         committed = [root]

@@ -79,7 +79,7 @@ class ChainSpecEngine:
         prompt_b = np.asarray(prompt, np.int64)[None]
         t_logits, t_cache = tgt.prefill(prompt_b, t_cache)
         _, d_cache = drf.prefill(prompt_b, d_cache)
-        model_len = len(prompt)
+        model_len = len(prompt)   # no prefix offset, as in the reference
         committed = [select_token(t_logits[0], c.sampling, generator)]
 
         # chain[0] is the last committed token; spec_len chain tokens have

@@ -212,10 +212,12 @@ class PipeDecEngine:
             _, d_cache = drf.prefill(prompt_b, d_cache)
 
         first = select_token(t_logits[0], sp, gen)
+        # the target's vision prefix counts for the draft too (the
+        # reference's rule: one committed length for both models)
         st = DecodeState(
             committed=[first], tree=tree_lib.tree_init(p.capacity, first),
             t_cache=t_cache, d_cache=d_cache, t_tree=t_tree, d_tree=d_tree,
-            model_len=len(prompt), generator=gen,
+            model_len=tgt.prefix_len + len(prompt), generator=gen,
             max_new_tokens=max_new_tokens,
             limit=max_timesteps or (max_new_tokens * (p.n_stages + 2) + 16),
             eos=eos, sampling=sp)

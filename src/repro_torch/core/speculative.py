@@ -67,12 +67,36 @@ class ModelBundle:
 
     ``calls`` counts prefill / decode / tree_verify / commit calls by name,
     exactly when several threads call (``counting.bump``).
+
+    A modality bundle carries its inputs, as the reference's does:
+    ``prefix_embeds`` [1, P, d] (a VLM's vision prefix) goes before every
+    prompt this bundle prefills, and the engines count its P rows in the
+    committed length; ``enc_out`` [1, T, d] (an encoder output,
+    ``encdec.encode``) is cross-attended by every step.  Its per-layer
+    cross K/V are computed once, here; one bundle's prefix and encoder
+    output serve every slot of a SpecPipe-DB arena.
     """
 
-    def __init__(self, model: Transformer):
+    def __init__(self, model: Transformer, *, prefix_embeds=None,
+                 enc_out=None):
         self.model = model
         self.cfg = model.cfg
         self.calls = collections.Counter()
+        dev = model.device
+        self.prefix_embeds = (None if prefix_embeds is None else
+                              torch.as_tensor(prefix_embeds,
+                                              device=dev).float())
+        self.enc_out = (None if enc_out is None else
+                        torch.as_tensor(enc_out, device=dev).float())
+        self.cross_kv = (tf.encode_cross_kv(model, self.enc_out)
+                         if self.enc_out is not None and self.cfg.is_encdec
+                         else None)
+
+    @property
+    def prefix_len(self) -> int:
+        """Rows of the vision prefix before each prompt (0 without)."""
+        return 0 if self.prefix_embeds is None else \
+            self.prefix_embeds.shape[1]
 
     @property
     def device(self) -> torch.device:
@@ -82,19 +106,22 @@ class ModelBundle:
     def prefill(self, tokens, cache):
         """(last-position logits [B,V], cache) for prompts [B,S]."""
         bump(self.calls, "prefill")
-        return tf.prefill(self.model, tokens, cache)
+        return tf.prefill(self.model, tokens, cache,
+                          prefix_embeds=self.prefix_embeds,
+                          cross_kv=self.cross_kv)
 
     def prefill_chunk(self, tokens, cache, chunk_start, *, on=None):
         """(logits [B,s,V], cache) for one prompt chunk per row at
         ``chunk_start`` (``transformer.prefill_chunk``)."""
         bump(self.calls, "prefill_chunk")
         return tf.prefill_chunk(self.model, tokens, cache, chunk_start,
-                                on=on)
+                                on=on, cross_kv=self.cross_kv)
 
     def decode(self, token, cache, cache_len):
         """(logits [B,V], cache) for one token per row at ``cache_len``."""
         bump(self.calls, "decode")
-        return tf.decode_step(self.model, token, cache, cache_len)
+        return tf.decode_step(self.model, token, cache, cache_len,
+                              cross_kv=self.cross_kv)
 
     def tree_verify(self, node_tokens, node_positions, tree_mask, cache,
                     cache_len, tree_caches, tree_write_index):
@@ -102,7 +129,7 @@ class ModelBundle:
         bump(self.calls, "tree_verify")
         return tf.tree_verify_step(self.model, node_tokens, node_positions,
                                    tree_mask, cache, cache_len, tree_caches,
-                                   tree_write_index)
+                                   tree_write_index, cross_kv=self.cross_kv)
 
     def tree_verify_rows(self, node_tokens, node_positions, tree_mask,
                          cache, cache_len, tree_caches, tree_write_index, *,
@@ -118,7 +145,8 @@ class ModelBundle:
         logits, _ = tf.tree_verify_step(
             self.model, node_tokens, node_positions, tree_mask,
             tf.slice_cache_rows(cache, 0, bucket), cache_len,
-            tf.slice_cache_rows(tree_caches, 0, bucket), tree_write_index)
+            tf.slice_cache_rows(tree_caches, 0, bucket), tree_write_index,
+            cross_kv=self.cross_kv)
         return logits, tree_caches
 
     def commit(self, cache, tree_caches, node_idx: int, model_len: int):
@@ -150,7 +178,8 @@ class ModelBundle:
         once here, and ``cfg.quant = "int8"`` switches every cache the new
         bundle builds to the int8 KV layout.  This bundle is left
         untouched.  The fp32 weights that stay fp32 (embeddings, norms,
-        the LM head) are shared with it, not copied.  Dense models only.
+        the LM head) are shared with it, not copied, and so is the vision
+        prefix.  Dense models only.
         """
         cfg = self.cfg
         if cfg.quant:
@@ -170,7 +199,8 @@ class ModelBundle:
                 qw.q8, qw.scale = quantize_weight(w, QUANT_WEIGHTS[leaf])
             else:
                 setattr(dst, leaf, w)
-        return ModelBundle(qmodel)
+        return ModelBundle(qmodel, prefix_embeds=self.prefix_embeds,
+                           enc_out=self.enc_out)
 
 
 @torch.no_grad()

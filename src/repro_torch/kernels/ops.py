@@ -36,7 +36,8 @@ from repro_torch.kernels.quant import dequant_matmul
 from repro_torch.kernels.tree_block import combine_lse, tree_block_attention
 
 __all__ = ["combine_lse", "tree_attention", "decode_attention",
-           "prefill_attention", "chunk_attention", "paged_tree_attention",
+           "prefill_attention", "chunk_attention", "full_attention",
+           "paged_tree_attention",
            "paged_decode_attention", "dequant_matmul", "quant_matmul"]
 
 
@@ -134,6 +135,18 @@ def chunk_attention(q, k, v, kv_len, positions, *,
     o, _, _ = flash_attention_lse(q, k, v, kv_len, positions,
                                   k_scale=k_scale, v_scale=v_scale,
                                   scale=scale, window=window, causal=True)
+    return o.to(q.dtype)
+
+
+def full_attention(q, k, v, *, scale: Optional[float] = None):
+    """Unmasked attention of every query over all L keys: the encoder's
+    bidirectional self-attention and the decoder's cross-attention.
+    q [B,H,n,hd], k/v [B|1,KV,L,hd] (a size-1 batch of k/v serves every
+    row of q, expanded without a copy).  Returns [B,H,n,hd]."""
+    b = q.shape[0]
+    if k.shape[0] != b:
+        k, v = k.expand(b, *k.shape[1:]), v.expand(b, *v.shape[1:])
+    o, _, _ = flash_attention_lse(q, k, v, k.shape[2], None, scale=scale)
     return o.to(q.dtype)
 
 

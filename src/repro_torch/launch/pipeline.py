@@ -88,12 +88,14 @@ class PipelineConfig:
 def check_ring_supported(cfg: ModelConfig) -> None:
     """Raise unless the ring serves ``cfg``: dense GQA decoders with a
     SwiGLU MLP and no QKV bias (fp32 or int8), what the ring is tested on.
-    MoE, MLA, QKV bias and other MLPs run in the local executors; on the
-    ring and the async executor they are ROADMAP item 17."""
+    MoE, MLA, QKV bias, other MLPs and an encoder run in the local
+    executors; on the ring and the async executor they are ROADMAP item
+    17.  A VLM config passes, served text-only (``check_ring_bundles``
+    refuses its prefix)."""
     tf.check_supported(cfg)
     bad = [name for name, on in (
         ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("qkv_bias", cfg.qkv_bias),
+        ("qkv_bias", cfg.qkv_bias), ("encoder", cfg.encoder is not None),
         (f"mlp_variant={cfg.mlp_variant}", cfg.mlp_variant != "swiglu"))
         if on]
     if bad:
@@ -101,6 +103,20 @@ def check_ring_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the stage ring and the async executor serve "
             f"dense SwiGLU decoders only, not {', '.join(bad)} (ROADMAP "
             "item 17: the ring with the new families)")
+
+
+def check_ring_bundles(target, draft) -> None:
+    """Raise for bundles that carry a vision prefix or an encoder output:
+    the ring's prefill lane embeds prompt tokens only, and the reference
+    turns its lane off for such bundles and prefills them apart, which the
+    port's fixed lane cannot yet do (ROADMAP item 17)."""
+    for name, b in (("target", target), ("draft", draft)):
+        if b.prefix_embeds is not None or b.enc_out is not None:
+            raise NotImplementedError(
+                f"the {name} bundle carries a vision prefix or an encoder "
+                "output: the stage ring and the async executor serve "
+                "text-only bundles (ROADMAP item 17: the ring with the new "
+                "families)")
 
 
 def stage_layout(cfg: ModelConfig, n_stages: int) -> Tuple[int, int]:

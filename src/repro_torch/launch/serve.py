@@ -13,6 +13,12 @@ of the registry at their smoke sizes (the JAX CLI's flags and defaults):
   PYTHONPATH=src python -m repro_torch.launch.serve --target-arch gemma-7b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --target-arch deepseek-v2-236b --mode pipedec-db --paged
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --target-arch whisper-base --mode pipedec-db
+
+``internvl2-26b`` and ``whisper-base`` are served text-only, with no
+vision prefix and no encoder output, as the reference's CLI serves them
+(a Whisper decoder then skips its cross-attention).
 
 ``--quant int8`` serves both bundles quantized
 (``ModelBundle.quantize()``: int8 projections through the dequant-matmul

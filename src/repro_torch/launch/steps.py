@@ -1,8 +1,10 @@
 """The AdamW train step of the port.
 
-The JAX package's ``repro/launch/steps.py`` ``make_train_step`` for dense
-models: the loss and its gradients under autograd (attention in plain
-PyTorch, no kernel), then the weights updated in place.
+The JAX package's ``repro/launch/steps.py`` ``make_train_step`` for the
+dense, MoE and MLA decoders: the loss (with the MoE router term) and its
+gradients under autograd (attention in plain PyTorch, no kernel), then
+the weights updated in place.  The modality families (a vision prefix or
+an encoder in the batch) are ROADMAP item 16 and are refused.
 """
 from __future__ import annotations
 
@@ -21,6 +23,17 @@ def _check(model: tf.Transformer, cfg: ModelConfig) -> None:
                          f"{model.cfg.name}")
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a configuration the trainer does not train yet: the
+    modality families, whose batches carry a vision prefix or encoder
+    frames (ROADMAP item 16)."""
+    tf.check_supported(cfg)
+    if cfg.prefix_tokens > 0 or cfg.encoder is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training the modality families (a vision prefix "
+            "or an encoder) is ROADMAP item 16")
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     *, remat: bool = True):
     """``step(model, opt_state, batch) -> (opt_state, metrics)``: one AdamW
@@ -29,6 +42,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     (``layers.trainable``) and ``opt_state`` made by ``adamw_init`` over
     them, in ``parameters()`` order.  ``metrics`` holds 0-d tensors on the
     model's device: ``loss``, ``grad_norm`` and ``lr``."""
+    check_trainable(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(model: tf.Transformer, opt_state: dict, batch: dict):

@@ -23,7 +23,7 @@ from repro_torch.checkpoint import save_pytree, to_jax_params
 from repro_torch.data import (BYTE_VOCAB, ByteCorpus, DataConfig,
                               batch_iterator, synthetic_corpus)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import check_trainable, make_train_step
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import trainable
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -35,7 +35,9 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     """Train ``cfg`` on the synthetic byte corpus for ``steps`` steps on
     ``device`` (the card unless the caller asks for the CPU); returns
     (model, losses) and saves a checkpoint to ``ckpt`` when given.  The
-    returned model's weights take no gradient, as a served model's."""
+    returned model's weights take no gradient, as a served model's.  The
+    modality families are refused (``steps.check_trainable``)."""
+    check_trainable(cfg)
     if cfg.vocab_size < BYTE_VOCAB:
         raise ValueError(f"the byte pipeline needs vocab >= {BYTE_VOCAB}, "
                          f"{cfg.name} has {cfg.vocab_size}")

@@ -1,7 +1,9 @@
 """Grouped-query attention (with or without QKV bias) and multi-head
 latent attention (MLA, DeepSeek-V2), with KV caches and the two-level
-(model + tree) cache path of paper Algorithm 1: the port of the JAX
-package's ``repro/models/attention.py`` without its cross-attention.
+(model + tree) cache path of paper Algorithm 1, and the encoder's
+bidirectional attention and the decoder's cross-attention of the
+encoder-decoder family: the port of the JAX package's
+``repro/models/attention.py``.
 
 Shapes follow the JAX package: x [B, S, d_model], q [B, S, H, hd],
 k/v [B, S, KV, hd], caches ``{"k", "v"}`` of [B, L, KV, hd] per layer.
@@ -23,7 +25,11 @@ a causal mask, or ``chunked_causal_attend`` from
 (``attn_prefill_chunk``) attends through the flash kernel too, over the
 cache rows earlier chunks wrote (the reference attends there in plain
 ``jnp``): a chunk's queries get the key chunks a one-shot causal prefill
-gives them (``flash.chunk_plan``).
+gives them (``flash.chunk_plan``).  The encoder's self-attention
+(``attn_bidir``) and the cross-attention (``cross_attn_forward``) attend
+through the flash kernel too, with no mask (``ops.full_attention``),
+where the reference attends in plain ``jnp``; in training the
+cross-attention is plain ``gqa_attend``.
 
 A cache leaf may also be block-paged (``models.paging.Paged``: a row pool
 behind a per-slot block table, the SpecPipe-DB paged arena).  Then decode
@@ -46,6 +52,7 @@ form for decode.  Its caches page like K/V.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Sequence
 
@@ -438,6 +445,85 @@ def _key_bound(length: int, positions, window: int, device):
     return valid
 
 
+@dataclasses.dataclass
+class EmptyRows:
+    """The batch rows of a tree verify with no committed prefix, and what
+    every layer needs to give their keyless queries the reference's value
+    (``_empty_row_value``), built once a verify by ``empty_rows`` so that
+    the layers copy nothing from the host.
+
+    ``slots``   [E] int64, the batch rows with ``model_len`` 0;
+    ``queries`` [E, n] bool, which of their queries have an all-false mask;
+    ``past``, ``tree`` [E, L], [E, T] int64, the physical pool rows of
+                those batch rows in a paged model or tree cache (None for
+                a dense one);
+    ``src``     [E, T] int64, the layer's row that lands at tree row t;
+    ``new``     [E, T] bool, whether tree row t takes a row of the layer
+                (the layer's rows past the buffer's end are dropped).
+    """
+    slots: torch.Tensor
+    queries: torch.Tensor
+    past: Optional[torch.Tensor]
+    tree: Optional[torch.Tensor]
+    src: torch.Tensor
+    new: torch.Tensor
+
+
+def empty_rows(slots: Sequence[int], tree_mask, model_cache, tree_cache,
+               tree_write_index: Sequence[int]) -> EmptyRows:
+    """``EmptyRows`` of batch rows ``slots`` (host ints) for a tree layer
+    of ``tree_mask`` [B,n,T] written at ``tree_write_index`` (host ints,
+    one broadcasts), over one layer's caches (every layer of a model
+    shares their tables and shapes)."""
+    dev = tree_mask.device
+    n, t = tree_mask.shape[1:]
+    idx = torch.tensor(list(slots), device=dev)
+    starts = list(tree_write_index)
+    starts = [starts[0 if len(starts) == 1 else s] for s in slots]
+    rel = (torch.arange(t, device=dev)
+           - torch.tensor(starts, device=dev)[:, None])
+
+    def phys(buf):
+        if not paging.is_paged(buf):
+            return None
+        return paging.row_ids(paging.Paged(buf.pages, buf.table[idx],
+                                           buf.page, buf.length))
+    return EmptyRows(idx, ~tree_mask[idx].any(-1), phys(model_cache["v"]),
+                     phys(tree_cache["v"]), rel.clamp(0, n - 1),
+                     (rel >= 0) & (rel < n))
+
+
+def _rows_v(cache, slots, rows):
+    """The V rows of batch rows ``slots`` as fp32 [E, L, KV, hd]: a paged
+    leaf read at its physical ``rows`` [E, L], int8 rows times their
+    scales."""
+    def pick(buf):
+        return buf.pages[rows] if rows is not None else buf[slots]
+    v = pick(cache["v"])
+    return v.float() * pick(cache["v_scale"])[..., None] \
+        if "v_scale" in cache else v
+
+
+def _empty_row_value(model_cache, tree_cache, rows, empty: EmptyRows,
+                     rep: int):
+    """[E,H,1,hd]: what the reference's joint softmax over [past || tree]
+    gives a query of an ``empty`` batch row with no valid key (every logit
+    at the fp32 minimum, so uniform weights): the mean of V over all past
+    and tree rows of that batch row, per KV head, for each of the ``rep``
+    heads sharing it.  The tree rows are read as they stand before this
+    layer's write (``tree_cache``), with the layer's ``rows`` put at their
+    logical places: the reference writes into its dense view of a paged
+    arena, so an unallocated block holds the layer's rows there too."""
+    layer = _rows_v(rows, empty.slots, None)              # [E,n,KV,hd]
+    tree = torch.where(
+        empty.new[:, :, None, None],
+        torch.take_along_dim(layer, empty.src[:, :, None, None], dim=1),
+        _rows_v(tree_cache, empty.slots, empty.tree))
+    past = _rows_v(model_cache, empty.slots, empty.past)
+    mean = torch.cat([past, tree], 1).mean(1)             # [E,KV,hd]
+    return mean.repeat_interleave(rep, dim=1)[:, :, None]
+
+
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
@@ -468,6 +554,43 @@ def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
                                 _heads_first(v), positions, window=window,
                                 **kw)
     return _out(p, _heads_first(out)), cache
+
+
+def attn_bidir(p: Attention, cfg: ModelConfig, x, positions):
+    """Bidirectional self-attention of a whole sequence (the encoder's):
+    RoPE at ``positions`` [B,S], every query over every key, through the
+    flash kernel (``ops.full_attention``).  Returns out [B,S,d]."""
+    q, k, v = project_qkv(p, cfg, x, positions)
+    out = ops.full_attention(_heads_first(q), _heads_first(k),
+                             _heads_first(v))
+    return _out(p, _heads_first(out))
+
+
+def encode_cross_kv(p: Attention, cfg: ModelConfig, enc_out):
+    """Cross-attention (k, v) [B,T,KV,hd] of the encoder output
+    ``enc_out`` [B,T,d]: the projections alone (no bias, no RoPE), as in
+    the reference."""
+    return _proj(enc_out, p.w_k), _proj(enc_out, p.w_v)
+
+
+def cross_attn_forward(p: Attention, cfg: ModelConfig, x, enc_kv, *,
+                       train: bool = False):
+    """Decoder cross-attention of x [B,S,d] over ``enc_kv`` = (k, v)
+    [1|B,T,KV,hd] (``encode_cross_kv``): no RoPE, no mask, the default
+    1/sqrt(hd) scale.  A size-1 batch of K/V serves every row of x (the
+    one encoder output of a SpecPipe-DB bundle over the bucket's rows).
+    Through the flash kernel, or, with ``train``, plain ``gqa_attend``
+    under autograd.  Returns [B,S,d]."""
+    q = _proj(x, p.w_q)
+    k, v = enc_kv
+    if train:
+        b = q.shape[0]
+        out = gqa_attend(q, k.expand(b, *k.shape[1:]),
+                         v.expand(b, *v.shape[1:]), None)
+    else:
+        out = _heads_first(ops.full_attention(
+            _heads_first(q), _heads_first(k), _heads_first(v)))
+    return _out(p, out)
 
 
 def attn_train(p: Attention, cfg: ModelConfig, x, positions, *,
@@ -557,7 +680,8 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, position, cache,
 def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
                      model_cache, model_len, tree_cache,
                      tree_write_index: Sequence[int], tree_mask,
-                     window: int = 0, tree_write_rows=None):
+                     window: int = 0, tree_write_rows=None,
+                     empty: Optional[EmptyRows] = None):
     """Attention for one new tree layer (paper Algorithm 1).
 
     x [B,n,d] the layer's hidden states at ``positions`` [B,n]; model_cache
@@ -568,6 +692,18 @@ def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
     buffer.  Paged caches (both, as the paged arena keeps
     them) go through the paged kernels.  MLA attends in plain PyTorch
     over both caches expanded, one joint softmax, as the reference does.
+
+    ``empty`` (``EmptyRows``, None when no row has ``model_len`` 0) marks
+    the batch rows with no committed prefix and which of their queries
+    have no valid key (an all-false mask): an empty slot's rows in a
+    SpecPipe-DB bucket.  The kernels give such a query 0; the reference's
+    joint softmax at the fp32 minimum gives it uniform weights, the mean
+    of V over the row's ``max_len`` past rows and ``T`` tree rows
+    (``_empty_row_value``), and that row reaches a MoE router beside the
+    live rows.  So the GQA branch selects that value for the marked
+    queries, reading only those batch rows' V, as the reference reads
+    them: a paged cache through its table (the reference densifies),
+    int8 rows dequantized.  MLA's joint softmax needs no select.
     Returns (out [B,n,d], tree_cache).
     """
     if isinstance(p, MLAttention):
@@ -589,8 +725,12 @@ def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
                           torch.cat([v_past, v_tree], 1), mask)
         return out, tree_cache
     q, k, v = project_qkv(p, cfg, x, positions)
-    cache_write_rows(tree_cache, kv_updates(tree_cache, k, v),
-                     tree_write_index, index=tree_write_rows)
+    rows = kv_updates(tree_cache, k, v)
+    v_empty = None if empty is None else _empty_row_value(
+        model_cache, tree_cache, rows, empty,
+        cfg.num_heads // cfg.num_kv_heads)
+    cache_write_rows(tree_cache, rows, tree_write_index,
+                     index=tree_write_rows)
     kw = dict(window=window, qpos=positions, **_scales(model_cache),
               **_scales(tree_cache, "kt_scale", "vt_scale"))
     if paging.is_paged(model_cache["k"]):
@@ -604,4 +744,7 @@ def attn_tree_verify(p: Attention, cfg: ModelConfig, x, positions, *,
             _heads_first(q), _heads_first(model_cache["k"]),
             _heads_first(model_cache["v"]), _heads_first(tree_cache["k"]),
             _heads_first(tree_cache["v"]), tree_mask, model_len, **kw)
+    if v_empty is not None:
+        out[empty.slots] = torch.where(empty.queries[:, None, :, None],
+                                       v_empty, out[empty.slots])
     return _out(p, _heads_first(out)), tree_cache

@@ -1,9 +1,22 @@
 """Decoder of the attention families: the dense (GQA, with or without QKV
-bias; SwiGLU, GeGLU or GELU MLP), MoE and MLA subset of the JAX package's
+bias; SwiGLU, GeGLU or GELU MLP), MoE, MLA and modality (VLM prefix,
+encoder-decoder) subset of the JAX package's
 ``repro/models/transformer.py``.  The reference's layer layout (dense
 ``prefix`` layers for a MoE config's ``first_dense``, then the scanned
 ``stack``) is one ``DecoderLayer`` per layer here, each with an MLP or a
 MoE block (``config.layer_is_moe``).
+
+Modality inputs, as in the reference: ``prefix_embeds`` [1|B, P, d] (a
+VLM's vision prefix, from the stub frontend) are put before the prompt's
+embeddings by ``forward``, ``prefill`` and ``loss_fn``, so the prompt's
+rows follow the P prefix rows in the cache; ``enc_out`` [1|B, T, d] (an
+encoder-decoder's encoder output, ``encdec.encode``) is attended by each
+decoder layer's ``cross`` sub-layer (self-attention, then ``cross_norm``
++ cross-attention, then ``norm2`` + MLP), in every mode; without
+``enc_out`` the sub-layer is skipped.  ``forward`` and ``loss_fn`` take
+``enc_out``; the serving step functions take the layers' cross K/V as
+``cross_kv``, computed once per encoder output by ``encode_cross_kv``
+(``ModelBundle`` does so).
 
 ``Transformer`` holds the weights in ``nn.Module``s with the JAX layouts
 (one ``DecoderLayer`` per layer in an ``nn.ModuleList``, where the JAX
@@ -52,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import paging
+from repro_torch.models.encdec import Encoder
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, MLP_VARIANTS, RMSNorm, embed,
                                        embed_init_, mlp, param, unembed,
@@ -62,21 +76,21 @@ from repro_torch.models.moe import MoE, moe_forward
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration outside what the port runs: decoders of
     attention layers (GQA with or without QKV bias, or MLA) and MLP or MoE
-    feed-forward blocks; int8 for dense attention only.  Recurrent
-    (ssm, rglru) and modality (encoder, prefix tokens) families are the
-    next slice of the port."""
+    feed-forward blocks, with a vision prefix (``vlm``) or an encoder and
+    cross-attention (``audio``); int8 for dense attention only.  The
+    recurrent families (ssm, rglru) are ROADMAP item 14c."""
     bad = [name for name, on in (
         ("ssm", cfg.ssm is not None), ("rglru", cfg.rglru is not None),
-        ("encoder", cfg.encoder is not None),
-        ("prefix_tokens", cfg.prefix_tokens > 0),
-        (f"family={cfg.family}", cfg.family not in ("dense", "moe")),
+        (f"family={cfg.family}",
+         cfg.family not in ("dense", "moe", "vlm", "audio")),
         (f"mlp_variant={cfg.mlp_variant}",
          cfg.mlp_variant not in MLP_VARIANTS)) if on]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense, MoE and MLA decoders; "
-            f"{', '.join(bad)} (recurrent and modality families) come in "
-            "the next slice of the port")
+            f"{cfg.name}: the port runs dense, MoE, MLA, VLM and "
+            f"encoder-decoder models; {', '.join(bad)} (the recurrent "
+            "families) come in the next slice of the port, ROADMAP item "
+            "14c")
     if cfg.quant not in ("", "int8"):
         raise NotImplementedError(f"{cfg.name}: quant={cfg.quant!r}")
     if cfg.quant == "int8" and (cfg.moe is not None or cfg.mla is not None):
@@ -86,7 +100,9 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class DecoderLayer(nn.Module):
     """Pre-norm attention (GQA, or MLA) + feed-forward block (an MLP of
-    the config's variant, or MoE when ``moe``)."""
+    the config's variant, or MoE when ``moe``); an encoder-decoder's layer
+    also has a pre-norm cross-attention (``cross_norm``, ``cross``: plain
+    GQA weights) between the two."""
 
     def __init__(self, cfg: ModelConfig, device, moe: bool = False):
         super().__init__()
@@ -94,6 +110,9 @@ class DecoderLayer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.mixer = (attn.MLAttention(cfg, device) if cfg.mla is not None
                       else attn.Attention(cfg, device))
+        if cfg.is_encdec:
+            self.cross_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+            self.cross = attn.Attention(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.ffn = (MoE(cfg, device) if moe else
                     MLP(cfg.d_model, cfg.d_ff, device,
@@ -104,6 +123,9 @@ class DecoderLayer(nn.Module):
         """Draw the layer's weights from ``gen``."""
         self.norm1.reset_parameters()
         self.mixer.reset_parameters(gen)
+        if self.cfg.is_encdec:
+            self.cross_norm.reset_parameters()
+            self.cross.reset_parameters(gen)
         self.norm2.reset_parameters()
         self.ffn.reset_parameters(gen)
 
@@ -118,7 +140,8 @@ class Embedding(nn.Module):
 
 class Transformer(nn.Module):
     """Embedding, decoder layers, final norm and LM head (tied to the
-    embedding when ``cfg.tie_embeddings``).  Weights are uninitialised
+    embedding when ``cfg.tie_embeddings``), and the ``encoder`` tower of an
+    encoder-decoder (None otherwise).  Weights are uninitialised
     until ``reset_parameters`` or the weight bridge fills them.  With
     ``cfg.quant == "int8"`` the seven projections of each layer are int8
     ``QuantWeight``s; embeddings, norms and the LM head stay fp32."""
@@ -136,6 +159,7 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg, device,
                                                  cfg.layer_is_moe(i))
                                     for i in range(cfg.num_layers))
+        self.encoder = Encoder(cfg, device) if cfg.is_encdec else None
 
     @property
     def device(self) -> torch.device:
@@ -154,6 +178,8 @@ class Transformer(nn.Module):
             embed_init_(self.lm_head.table, gen)
         for layer in self.layers:
             layer.reset_parameters(gen)
+        if self.encoder is not None:
+            self.encoder.reset_parameters(gen)
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
@@ -206,10 +232,47 @@ def _tokens(model: Transformer, tokens):
     return torch.as_tensor(tokens, device=model.device).long()
 
 
-def _block(i: int, layer: DecoderLayer, x, attend, aux=None):
-    """Residual block ``i``; ``attend(i, mixer, h)`` is its attention.  A
-    MoE block appends its router term to ``aux`` when a list is given."""
+def _embed_inputs(model: Transformer, tokens, prefix_embeds=None):
+    """Token embeddings [B,S,d], after the ``prefix_embeds`` [1|B,P,d]
+    rows when given ([B,P+S,d])."""
+    x = embed(model.embed.table, tokens)
+    if prefix_embeds is None:
+        return x
+    pre = torch.as_tensor(prefix_embeds, device=x.device).to(x.dtype)
+    return torch.cat([pre.expand(x.shape[0], -1, -1), x], dim=1)
+
+
+def encode_cross_kv(model: Transformer, enc_out) -> list:
+    """Per decoder layer, the cross-attention (k, v) [1|B,T,KV,hd] of the
+    encoder output ``enc_out`` [1|B,T,d] (``attention.encode_cross_kv``),
+    to be computed once per encoder output and passed to the serving step
+    functions as ``cross_kv``."""
+    enc = torch.as_tensor(enc_out, device=model.device).float()
+    return [attn.encode_cross_kv(layer.cross, model.cfg, enc)
+            for layer in model.layers]
+
+
+def _cross(model: Transformer, cross_kv, *, train: bool = False):
+    """The layers' cross-attention ``cross(i, p, h)`` over ``cross_kv``, or
+    None when it is not given or the model has no cross sub-layer (as the
+    reference skips it).  ``train`` attends in plain PyTorch under
+    autograd, else through the flash kernel."""
+    if not model.cfg.is_encdec or cross_kv is None:
+        return None
+
+    def cross(i, p, h):
+        return attn.cross_attn_forward(p, model.cfg, h, cross_kv[i],
+                                       train=train)
+    return cross
+
+
+def _block(i: int, layer: DecoderLayer, x, attend, aux=None, cross=None):
+    """Residual block ``i``; ``attend(i, mixer, h)`` is its attention and
+    ``cross(i, p, h)``, when given, its cross-attention.  A MoE block
+    appends its router term to ``aux`` when a list is given."""
     x = x + attend(i, layer.mixer, layer.norm1(x))
+    if cross is not None:
+        x = x + cross(i, layer.cross, layer.cross_norm(x))
     h = layer.norm2(x)
     if isinstance(layer.ffn, MoE):
         y, a = moe_forward(layer.ffn, layer.cfg, h)
@@ -220,17 +283,18 @@ def _block(i: int, layer: DecoderLayer, x, attend, aux=None):
 
 
 def _run_layers(model: Transformer, x, attend, *, remat: bool = False,
-                aux=None):
+                aux=None, cross=None):
     """The residual blocks in order; with ``remat`` each block keeps only
     its input for backward and recomputes the rest there
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
-    MoE blocks append their router terms to ``aux`` (a list) when given."""
+    MoE blocks append their router terms to ``aux`` (a list) when given;
+    ``cross`` is the blocks' cross-attention (``_cross``)."""
     for i, layer in enumerate(model.layers):
         if remat:
-            x = checkpoint(_block, i, layer, x, attend, aux,
+            x = checkpoint(_block, i, layer, x, attend, aux, cross,
                            use_reentrant=False)
         else:
-            x = _block(i, layer, x, attend, aux)
+            x = _block(i, layer, x, attend, aux, cross)
     return x
 
 
@@ -243,39 +307,42 @@ def _logits(model: Transformer, x):
     return unembed(_head(model), model.final_norm(x))
 
 
-def _hidden(model: Transformer, tokens, *, remat: bool = False, aux=None):
-    """Training forward up to the final norm: hidden states [B,S,d] under
-    autograd, attention in plain PyTorch (``attn.attn_train``); MoE router
-    terms appended to ``aux`` when it is a list."""
+def _hidden(model: Transformer, tokens, *, prefix_embeds=None,
+            enc_out=None, remat: bool = False):
+    """Training forward up to the final norm: (hidden states [B,P+S,d],
+    the summed MoE router term: 0 without MoE layers) under autograd,
+    attention in plain PyTorch (``attn.attn_train``)."""
     cfg = model.cfg
-    tokens = _tokens(model, tokens)
-    b, s = tokens.shape
+    x = _embed_inputs(model, _tokens(model, tokens), prefix_embeds)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=model.device).expand(b, s)
 
     def attend(i, mixer, h):
         return attn.attn_train(mixer, cfg, h, positions,
                                window=cfg.sliding_window)
 
-    x = _run_layers(model, embed(model.embed.table, tokens), attend,
-                    remat=remat, aux=aux)
-    return model.final_norm(x)
-
-
-def forward(model: Transformer, tokens, *, remat: bool = False,
-            with_aux: bool = False):
-    """Training forward: logits [B,S,V] of every position (no prefix
-    embeddings or encoder); with ``with_aux``, (logits, the summed MoE
-    router term), as the reference's ``forward`` returns (0 without MoE
-    layers).  ``loss_fn`` does not add the router term yet."""
     aux = []
-    logits = unembed(_head(model), _hidden(model, tokens, remat=remat,
-                                           aux=aux))
-    if not with_aux:
-        return logits
-    total = torch.zeros((), dtype=torch.float32, device=logits.device)
+    x = _run_layers(model, x, attend, remat=remat, aux=aux,
+                    cross=_cross(model, None if enc_out is None else
+                                 encode_cross_kv(model, enc_out),
+                                 train=True))
+    total = torch.zeros((), dtype=wide(x).dtype, device=x.device)
     for a in aux:
         total = total + a
-    return logits, total
+    return model.final_norm(x), total
+
+
+def forward(model: Transformer, tokens, *, prefix_embeds=None,
+            enc_out=None, remat: bool = False, with_aux: bool = False):
+    """Training forward: logits [B,P+S,V] of every position, the
+    ``prefix_embeds`` rows first when given, the decoder cross-attending
+    ``enc_out`` when given; with ``with_aux``, (logits, the summed MoE
+    router term), as the reference's ``forward`` returns (0 without MoE
+    layers)."""
+    hidden, aux = _hidden(model, tokens, prefix_embeds=prefix_embeds,
+                          enc_out=enc_out, remat=remat)
+    logits = unembed(_head(model), hidden)
+    return (logits, aux) if with_aux else logits
 
 
 def _ce_sum(table, hc, yc):
@@ -306,37 +373,47 @@ def chunked_ce(table, hidden, labels, *, chunk: int = 256):
     return total / (b * s)
 
 
-def loss_fn(model: Transformer, tokens, labels, *, remat: bool = False,
-            ce_chunk: int = 256):
+def loss_fn(model: Transformer, tokens, labels, *, prefix_embeds=None,
+            enc_out=None, remat: bool = False, ce_chunk: int = 256):
     """Mean next-token cross-entropy of ``labels`` [B,S] (-1: ignored)
-    given ``tokens`` [B,S], under autograd."""
-    hidden = _hidden(model, tokens, remat=remat)
-    return chunked_ce(_head(model), hidden, _tokens(model, labels),
-                      chunk=ce_chunk)
+    given ``tokens`` [B,S] (the prefix rows' hidden states dropped), plus
+    ``cfg.moe.router_aux_weight`` times the summed router term for a MoE
+    model, as in the reference; under autograd."""
+    hidden, aux = _hidden(model, tokens, prefix_embeds=prefix_embeds,
+                          enc_out=enc_out, remat=remat)
+    if prefix_embeds is not None:
+        hidden = hidden[:, prefix_embeds.shape[1]:]
+    ce = chunked_ce(_head(model), hidden, _tokens(model, labels),
+                    chunk=ce_chunk)
+    if model.cfg.moe is not None:
+        ce = ce + model.cfg.moe.router_aux_weight * aux
+    return ce
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens, cache):
-    """Fill the model cache from position 0 with ``tokens`` [B,S]; returns
-    (last-position logits [B,V], cache)."""
+def prefill(model: Transformer, tokens, cache, *, prefix_embeds=None,
+            cross_kv=None):
+    """Fill the model cache from position 0 with ``tokens`` [B,S], after
+    the ``prefix_embeds`` rows [0, P) when given; returns (last-position
+    logits [B,V], cache)."""
     cfg = model.cfg
-    tokens = _tokens(model, tokens)
-    b, s = tokens.shape
+    x = _embed_inputs(model, _tokens(model, tokens), prefix_embeds)
+    b, s = x.shape[:2]
     positions = torch.arange(s, device=model.device).expand(b, s)
-    x = embed(model.embed.table, tokens)
 
     def attend(i, mixer, h):
         y, _ = attn.attn_forward(mixer, cfg, h, positions, cache=cache[i],
                                  window=cfg.sliding_window)
         return y
 
-    x = _run_layers(model, x, attend)
+    x = _run_layers(model, x, attend,
+                    cross=_cross(model, cross_kv))
     return _logits(model, x[:, -1]), cache
 
 
 @torch.no_grad()
 def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
-                  on=None):
+                  on=None, cross_kv=None):
     """Fill the model cache with one chunk of a longer prompt: row b's
     ``tokens[b]`` [B,s] sit at positions [chunk_start[b], chunk_start[b] +
     s) (host ints; one broadcasts).  Chunks are fed in order, each
@@ -358,12 +435,14 @@ def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
                                        window=cfg.sliding_window)
         return y
 
-    x = _run_layers(model, x, attend)
+    x = _run_layers(model, x, attend,
+                    cross=_cross(model, cross_kv))
     return _logits(model, x), cache
 
 
 @torch.no_grad()
-def decode_step(model: Transformer, token, cache, cache_len):
+def decode_step(model: Transformer, token, cache, cache_len, *,
+                cross_kv=None):
     """token [B] -> (logits [B,V], cache); row b's token sits at position
     ``cache_len[b]`` (an int broadcasts) and is written there."""
     cfg = model.cfg
@@ -379,21 +458,25 @@ def decode_step(model: Transformer, token, cache, cache_len):
                                 kv_len, window=cfg.sliding_window)
         return y
 
-    x = _run_layers(model, x, attend)
+    x = _run_layers(model, x, attend,
+                    cross=_cross(model, cross_kv))
     return _logits(model, x[:, 0]), cache
 
 
 @torch.no_grad()
 def tree_verify_step(model: Transformer, node_tokens, node_positions,
                      tree_mask, cache, cache_len, tree_caches,
-                     tree_write_index):
+                     tree_write_index, *, cross_kv=None):
     """Verify one tree layer (PipeDec 3.4.2).
 
     node_tokens [B,n] token ids of the new layer (padded); node_positions
     [B,n] absolute positions; tree_mask [B,n,T] (or [n,T]) per-row
     ancestor mask against the whole tree buffer; cache_len [B] committed
     prefix per row and tree_write_index [B] tree-buffer write offset per
-    row (ints broadcast).  Returns (logits [B,n,V], tree_caches).
+    row (ints broadcast).  A row with no committed prefix (an empty
+    slot's, ``cache_len`` 0) whose mask is all false attends as the
+    reference's joint softmax does (``attention.attn_tree_verify``'s
+    ``empty``).  Returns (logits [B,n,V], tree_caches).
     """
     cfg = model.cfg
     dev = model.device
@@ -404,9 +487,13 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
     mask = torch.as_tensor(tree_mask, device=dev, dtype=torch.bool)
     mask = (mask if mask.dim() == 3 else mask[None]).expand(b, n,
                                                             mask.shape[-1])
-    model_len = torch.as_tensor(host_rows(cache_len, b), device=dev,
-                                dtype=torch.int32)
+    lens = host_rows(cache_len, b)
+    model_len = torch.as_tensor(lens, device=dev, dtype=torch.int32)
     write_at = host_rows(tree_write_index, b)
+    empty_slots = [i for i, ln in enumerate(lens) if ln == 0]
+    empty = attn.empty_rows(empty_slots, mask, cache[0], tree_caches[0],
+                            write_at) \
+        if empty_slots and cfg.mla is None else None
     # every layer's tree cache takes the layer at the same rows
     write_rows = attn.write_index(next(iter(tree_caches[0].values())),
                                   write_at, b, n)
@@ -417,10 +504,12 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
             mixer, cfg, h, positions, model_cache=cache[i],
             model_len=model_len, tree_cache=tree_caches[i],
             tree_write_index=write_at, tree_mask=mask,
-            window=cfg.sliding_window, tree_write_rows=write_rows)
+            window=cfg.sliding_window, tree_write_rows=write_rows,
+            empty=empty)
         return y
 
-    x = _run_layers(model, x, attend)
+    x = _run_layers(model, x, attend,
+                    cross=_cross(model, cross_kv))
     return _logits(model, x), tree_caches
 
 

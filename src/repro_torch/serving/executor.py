@@ -300,6 +300,7 @@ class ShardedPipelineExecutor(PipelineExecutor):
                  capacity: int, n_stages: int, paged: bool = False,
                  page: int = 16):
         super().__init__(slots)
+        pl.check_ring_bundles(target, draft)
         width = tree_capacity - capacity
         if width < 1:
             raise ValueError("tree_capacity must include the width-w slack")
@@ -940,6 +941,7 @@ class AsyncPipelineExecutor(PipelineExecutor):
             raise ValueError("AsyncPipelineExecutor has no paged arena: "
                              "serve paged caches on the lockstep ring "
                              "(ShardedPipelineExecutor, paged=True)")
+        pl.check_ring_bundles(target, draft)
         width = tree_capacity - capacity
         if width < 1:
             raise ValueError("tree_capacity must include the width-w slack")

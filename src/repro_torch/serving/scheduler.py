@@ -302,7 +302,10 @@ class PagedKVArena(KVArena):
     scatters it back through the table, as the reference does.
 
     On top of the base arena: admission fit-check of a request's horizon
-    (prompt + budget + tree slack, capped at ``max_len``); LRU
+    (prompt + budget + tree slack, capped at ``max_len``; plus the
+    target's vision prefix, whose rows precede the prompt's: the
+    reference leaves them out, so that a long prefix there writes its
+    last rows into the null block); LRU
     swap-to-host (``swap_out``/``swap_in``: the slot's dense rows go to
     host memory and come back into possibly different blocks, invisibly
     behind the table); preemption of parked slots (``park``,
@@ -320,6 +323,7 @@ class PagedKVArena(KVArena):
                                    model_blocks=model_blocks,
                                    tree_blocks=tree_blocks)
         self.page = page
+        self.prefix = target.prefix_len
         # lazy_tree backs only the busy tree region at bind and grows it by
         # ensure_tree() before expansion (copy-on-expand); the default
         # backs the whole tree capacity at admission
@@ -376,7 +380,8 @@ class PagedKVArena(KVArena):
     # -- admission policy ----------------------------------------------
     def _horizon(self, req) -> int:
         prompt = getattr(req, "prompt", None)
-        plen = len(prompt) if prompt is not None else self.max_len
+        plen = (self.prefix + len(prompt) if prompt is not None
+                else self.max_len)
         budget = getattr(req, "max_new_tokens", None)
         if budget is None:
             budget = self.max_len

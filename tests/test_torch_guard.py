@@ -29,7 +29,8 @@ db = ["models.paging", "kernels.paged", "core.dynbatch",
       "serving.scheduler", "serving.executor", "serving.dynbatch",
       "core.baselines", "core.chain", "core.sim", "data.pipeline",
       "optim.adamw", "launch.steps", "launch.train", "launch.pipeline",
-      "launch.sharded_check", "counting", "models.moe",
+      "launch.sharded_check", "counting", "models.moe", "models.encdec",
+      "models.frontends",
       "configs.deepseek_v2_236b", "configs.gemma_7b",
       "configs.moonshot_v1_16b_a3b", "configs.qwen1_5_32b",
       "configs.qwen2_5_32b", "configs.qwen2_moe_a2_7b",

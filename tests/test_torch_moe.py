@@ -166,13 +166,15 @@ def draft_for(vocab: int) -> ModelConfig:
                        vocab_size=vocab)
 
 
-def bundles(arch, seed):
+def bundles(arch, seed, capacity_factor=None):
     """{(port, JAX) bundles} of a family target at dropless MoE capacity
-    (as the JAX family test) and the one-layer dense draft."""
+    (as the JAX family test), or at ``capacity_factor`` when given, and
+    the one-layer dense draft."""
     jcfg = jreg.get_config(arch, smoke=True)
     if jcfg.moe is not None:
         jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
-            jcfg.moe, capacity_factor=float(jcfg.moe.num_experts)))
+            jcfg.moe, capacity_factor=capacity_factor or float(
+                jcfg.moe.num_experts)))
     out = {}
     for name, c, s in (("target", jcfg, seed),
                        ("draft", JaxModelConfig(**dataclasses.asdict(
