@@ -126,6 +126,21 @@ Phases, each printed as JSON objects, one per line:
                  x calls (Gemma's on the head_dim 256 instances, none for
                  DeepSeek's MLA, which attends in plain PyTorch); wall ms
                  per token and peak memory;
+16d. family-mamba2-130m, family-recurrentgemma-9b - the recurrent
+                 families whole at published width (Mamba-2: 24 SSD layers;
+                 RecurrentGemma: 26 RG-LRU and 12 local attention layers,
+                 window 2048, about 37.6 GB in fp32) with the random
+                 2-layer draft: pp (two 64-token requests in one batch),
+                 chain speculation (8 stages) with the random draft on a
+                 64-token prompt and (RecurrentGemma) a 2112-token one
+                 past the window, and with the target as its own draft
+                 (acceptance 1.0, no miss), lossless against
+                 autoregressive decoding (near-tie rule); the PipeDec
+                 refusal (NotImplementedError naming chain-mode);
+                 RecurrentGemma's head_dim 256 flash launches (windowed)
+                 12 x the target's calls; ms per token of each, the long
+                 prompt's prefill ms, snapshot copies per timestep, peak
+                 memory;
 16b. family-db - SpecPipe-DB (3 slots, arrivals 0, 0, 3) for Gemma,
                  Moonlight and DeepSeek on dense and paged arenas at
                  dropless MoE capacity: paged equals dense bit for bit,
@@ -269,6 +284,8 @@ STPP_T = STPP_NODES + STPP_WIDTH
 # projections per layer per forward call, each one dequant_matmul launch
 PROJECTIONS = 7
 WHISPER_FRAMES = 1500     # whisper-base's encoder.max_source_positions
+RG_WINDOW = 2048          # recurrentgemma-9b's local attention window
+RG_LONG_PROMPT = 2112     # a prompt past the window
 # phase train: the JAX CLI's defaults (batch 8, seq 128, lr 3e-4) on the
 # trainer's corpus (seed 0, 2^18 bytes); the draft's steps (run with remat
 # off and on), the 1-layer target's; the steps before the timed median;
@@ -422,6 +439,13 @@ HD256 = " hd256"
 KERNEL_ROWS += tuple((name + HD256, src, replaces)
                      for name, src, replaces in KERNEL_ROWS
                      if "attention" in name)
+# the head_dim 256 flash instance with a window (RecurrentGemma's local
+# attention, 16 query heads over one KV head): a row of its own, counted
+# apart (its launches are also in the "flash_attention_lse hd256" row)
+HD256_WINDOW = HD256 + " window"
+KERNEL_ROWS += (("flash_attention_lse" + HD256_WINDOW,
+                 "src/repro_torch/csrc/flash_attention_lse.cu",
+                 "src/repro/kernels/flash.py:102"),)
 
 
 def kernel_cases(torch, dev):
@@ -447,18 +471,23 @@ def kernel_cases(torch, dev):
         return out
 
     def flash_case(name, b, h, kvh, n, hd, length, kv_len, *, causal=False,
-                   window=0, main=False, int8=False, shared_kv=False):
+                   window=0, main=False, int8=False, shared_kv=False,
+                   q0=None):
         """``shared_kv``: one K/V batch row expanded over the B rows of q
         (batch stride 0), as a DB bucket's cross-attention reads the one
-        encoder output."""
+        encoder output.  ``q0``: the causal queries' first position per
+        row (else 0)."""
         q = rnd(b, n, h, hd).transpose(1, 2)          # [B,H,n,hd] view
         kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         if causal:
             qpos = torch.arange(n, device=dev).expand(b, n)
+            if q0 is not None:
+                qpos = qpos + torch.tensor(q0, device=dev)[:, None]
         else:   # tree-layer positions: committed prefix + depth
             qpos = (kvl.long() - 1)[:, None] + torch.arange(n, device=dev) // 2
         row = ("flash_attention_lse" + (" int8" if int8 else "")
-               + (HD256 if hd > 128 else ""))
+               + (HD256 if hd > 128 else "")
+               + (" window" if hd > 128 and window else ""))
         kvs = kv(1 if shared_kv else b, length, kvh, hd, int8)
         if shared_kv:
             kvs = {k: x.expand(b, *x.shape[1:]) for k, x in kvs.items()}
@@ -539,6 +568,15 @@ def kernel_cases(torch, dev):
                    64, WHISPER_FRAMES, [WHISPER_FRAMES]),
         flash_case("flash/cross whisper B=3 n=8 T=1500", 3, 8, 8, 8, 64,
                    WHISPER_FRAMES, [WHISPER_FRAMES] * 3, shared_kv=True),
+        # RecurrentGemma's local attention (16 heads over one KV head,
+        # head_dim 256, window 2048): a decode at row 3000 of a 4096-row
+        # cache, and 64 causal queries at 2048-2111 whose 4-query tiles
+        # straddle the window's edge
+        flash_case("flash hd256 window/decode recurrentgemma L=4096", 1, 16,
+                   1, 1, 256, 4096, [3000], window=RG_WINDOW, main=True),
+        flash_case("flash hd256 window/prefill recurrentgemma n=64", 1, 16,
+                   1, 64, 256, RG_LONG_PROMPT, [RG_LONG_PROMPT],
+                   causal=True, window=RG_WINDOW, q0=[RG_WINDOW]),
     ]
 
 
@@ -1213,7 +1251,9 @@ def _counters():
         out += [(row, fn, "launches"), (row + " int8", fn, "launches_int8"),
                 (row + HD256, fn, "launches_hd256"),
                 (row + " int8" + HD256, fn, "launches_int8_hd256")]
-    return (*out, ("dequant_matmul", quant.dequant_matmul, "launches"))
+    return (*out, ("flash_attention_lse" + HD256_WINDOW,
+                   flash.flash_attention_lse, "launches_hd256_window"),
+            ("dequant_matmul", quant.dequant_matmul, "launches"))
 
 
 def zero_launches(*bundles):
@@ -1238,13 +1278,17 @@ def read_launches(*bundles, paged=False):
     head_dim 256 instances, counted in the ``hd256`` rows as well.  A
     bundle carrying an encoder output (Whisper) also launches flash once
     per layer of every model call for its cross-attention, on a paged
-    arena too (the encoder output is one dense tensor).  A bundle that
-    serves as both target and draft is counted once."""
+    arena too (the encoder output is one dense tensor).  Only attention
+    layers launch: a recurrent layer (SSD, RG-LRU) runs in plain PyTorch,
+    so Mamba-2 launches nothing and RecurrentGemma flash once per local
+    layer, on the head_dim 256 instance with its window (also counted in
+    the ``hd256 window`` row).  A bundle that serves as both target and
+    draft is counted once."""
     launches = {row: getattr(fn, attr) for row, fn, attr in _counters()}
     expect = collections.Counter(dict.fromkeys(launches, 0))
     uniq = {id(b): b for b in bundles if b is not None}.values()
     for b in uniq:
-        layers = 0 if b.cfg.mla is not None else b.cfg.num_layers
+        layers, windowed = _attention_layers(b.cfg)
         calls = b.calls
         rows = calls.get("tree_verify_rows", 0)
         trees = calls.get("tree_verify", 0) + (0 if paged else rows)
@@ -1255,6 +1299,8 @@ def read_launches(*bundles, paged=False):
         modes = [" int8" if int8 else ""]
         if b.cfg.resolved_head_dim > 128:
             modes.append(modes[0] + HD256)
+        if b.cfg.resolved_head_dim > 128 and not int8:
+            expect["flash_attention_lse" + HD256_WINDOW] += windowed * forward
         for mode in modes:
             expect["flash_attention_lse" + mode] += layers * forward + \
                 cross * (forward + (rows if paged else 0))
@@ -1266,6 +1312,19 @@ def read_launches(*bundles, paged=False):
             expect["dequant_matmul"] += PROJECTIONS * layers * (
                 forward + (rows if paged else 0))
     return launches, dict(expect)
+
+
+def _attention_layers(cfg):
+    """(layers that launch attention kernels, those of them with a
+    window): an MLA model attends in plain PyTorch, a recurrent layer has
+    no attention."""
+    from repro_torch.models import transformer as tf
+    if cfg.mla is not None:
+        return 0, 0
+    kinds = tf.layer_kinds(cfg)
+    att = [w for k, w in zip(kinds, tf.layer_windows(cfg))
+           if k not in tf.RECURRENT_KINDS]
+    return len(att), sum(w > 0 for w in att)
 
 
 def launches_ok(launches, expect, used):
@@ -3095,6 +3154,14 @@ FAMILY_DB_NEW_TOKENS = 8
 FAMILY_INT8_ARCHS = ("gemma-7b", "qwen2.5-32b")
 FAMILY_INT8_NEW_TOKENS = 8
 FAMILY_MAX_LEN = 256      # cache rows past a vision prefix
+# the recurrent families whole at published width: Mamba-2 (24 SSD
+# layers, no attention) and RecurrentGemma (26 RG-LRU and 12 local
+# attention layers, about 37.6 GB in fp32), served by pp and chain
+# speculation; RecurrentGemma's third prompt is past its 2048-key window
+FAMILY_RECURRENT_ARCHS = (("mamba2-130m", 24), ("recurrentgemma-9b", 38))
+RECURRENT_PROMPT_LENS = {"mamba2-130m": (64, 64),
+                         "recurrentgemma-9b": (64, 64, RG_LONG_PROMPT)}
+RECURRENT_MAX_LEN = {"mamba2-130m": 256, "recurrentgemma-9b": 2304}
 
 
 def _family_cfgs(arch, *, dropless=False):
@@ -3108,7 +3175,7 @@ def _family_cfgs(arch, *, dropless=False):
     from repro_torch.models.config import ModelConfig
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, num_layers=dict(
-        FAMILY_ARCHS + FAMILY_MODAL_ARCHS)[arch])
+        FAMILY_ARCHS + FAMILY_MODAL_ARCHS + FAMILY_RECURRENT_ARCHS)[arch])
     if dropless and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
@@ -3315,6 +3382,171 @@ def phase_family(arch):
                              "expected_launches": expect},
               "peak_mem_gb": peak_gb})
         del target, draft, eng
+        _free()
+        if not ok:
+            raise AssertionError(f"family-{arch} failed: see its line")
+    return run
+
+
+def _sync_s(t0):
+    import torch
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _recurrent_pp(target, prompts, want, new_tokens, max_len, path):
+    """ServingEngine(mode="pp") over ``prompts`` in one batch: tokens
+    against ``want`` (near-tie rule), launches against the calls."""
+    from repro_torch.serving import Request, ServingEngine
+    engine = ServingEngine(target, mode="pp", max_batch=len(prompts),
+                           max_len=max_len)
+    for uid, p in enumerate(prompts):
+        engine.submit(Request(uid, p, new_tokens))
+    zero_launches(target)
+    t0 = time.perf_counter()
+    results = engine.run()
+    wall_s = _sync_s(t0)
+    launches, expect = read_launches(target)
+    ok = launches_ok(launches, expect, path)
+    rows = []
+    for uid, p in enumerate(prompts):
+        same, tie = _lossless(target, p, results[uid].tokens, want[uid])
+        ok = ok and same
+        rows.append({"uid": uid, "prompt_len": len(p), "lossless": same,
+                     "near_tie": tie})
+    return ok, {"ok": ok, "batch": len(prompts), "wall_s": wall_s,
+                "ms_per_token": 1e3 * wall_s / new_tokens,
+                "launches": launches, "expected_launches": expect,
+                "calls": dict(target.calls), "requests": rows}
+
+
+def _recurrent_chain(target, draft, prompts, want, new_tokens, max_len,
+                     path):
+    """ChainSpecEngine (8 stages) over ``prompts``: tokens against
+    ``want`` (near-tie rule), launches against the calls; with the target
+    as its own draft, acceptance 1.0 and no miss.  Reports the recurrent
+    snapshot copies (leaves copied) per timestep."""
+    from repro_torch.core.chain import ChainConfig, ChainSpecEngine
+    eng = ChainSpecEngine(target, draft, ChainConfig(n_stages=8),
+                          max_len=max_len)
+    zero_launches(target, draft)
+    t0 = time.perf_counter()
+    outs = [eng.generate(p, new_tokens) for p in prompts]
+    wall_s = _sync_s(t0)
+    launches, expect = read_launches(target, draft)
+    ok = launches_ok(launches, expect, path)
+    rows = []
+    for uid, (p, (out, st)) in enumerate(zip(prompts, outs)):
+        same, tie = _lossless(target, p, out, want[uid])
+        ok = ok and same
+        if draft is target:
+            ok = ok and st.acceptance == 1.0 and st.misses == 0
+        rows.append({"uid": uid, "prompt_len": len(p), **_gen_stats(st),
+                     "lossless": same, "near_tie": tie})
+    timesteps = sum(st.timesteps for _, st in outs)
+    return ok, {"ok": ok, "n_stages": 8, "wall_s": wall_s,
+                "ms_per_token": 1e3 * wall_s / (len(prompts) * new_tokens),
+                "ms_per_timestep": 1e3 * wall_s / timesteps,
+                "timesteps": timesteps,
+                "hits": sum(st.hits for _, st in outs),
+                "misses": sum(st.misses for _, st in outs),
+                "snapshot_copies": eng.snapshot_copies,
+                "snapshot_copies_per_timestep":
+                    eng.snapshot_copies / timesteps,
+                "launches": launches, "expected_launches": expect,
+                "calls": _calls(target, draft), "requests": rows}
+
+
+def phase_recurrent(arch):
+    """A recurrent family whole at published width (seeded random weights,
+    fp32) with the families' random 2-layer draft: autoregressive decoding
+    of each prompt (the reference); ``ServingEngine(mode="pp")`` over the
+    two 64-token prompts in one batch; chain speculation (8 stages) with
+    the random draft on the first prompt and the last (RecurrentGemma's
+    2112-token one, past its window) and with the target as its own draft
+    (acceptance 1.0, no miss), all lossless (near-tie rule); the tree
+    modes' refusal (``ServingEngine(mode="pipedec")`` raises naming
+    chain-mode); launches against the calls (Mamba-2's target none,
+    RecurrentGemma's the head_dim 256 flash instance with its window once
+    per local layer per call); ms per token, the long prompt's prefill
+    ms, snapshot copies per timestep and peak memory."""
+    def run(state):
+        import numpy as np
+        import torch
+        from repro_torch.core.baselines import generate_autoregressive
+        from repro_torch.models import transformer as tf
+        from repro_torch.serving import ServingEngine
+        _free("target", "draft", "target_int8", "draft_int8", state=state)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        target, draft = _family_bundles(arch)
+        init_s = _sync_s(t0)
+        cfg = target.cfg
+        max_len = RECURRENT_MAX_LEN[arch]
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int64)
+                   for n in RECURRENT_PROMPT_LENS[arch]]
+        new = FAMILY_NEW_TOKENS
+        t0 = time.perf_counter()
+        want = [generate_autoregressive(target, p, new, max_len=max_len)
+                for p in prompts]
+        ar_ms = 1e3 * _sync_s(t0) / (len(prompts) * new)
+        n_attn, n_win = _attention_layers(cfg)
+        t_path = (("flash_attention_lse", "flash_attention_lse" + HD256,
+                   "flash_attention_lse" + HD256_WINDOW) if n_attn else ())
+        pp_ok, pp = _recurrent_pp(target, prompts[:2], want[:2], new,
+                                  max_len, t_path)
+        chain_prompts = [prompts[0], prompts[-1]]
+        chain_want = [want[0], want[-1]]
+        ch_ok, chain = _recurrent_chain(
+            target, draft, chain_prompts, chain_want, new, max_len,
+            tuple(dict.fromkeys(("flash_attention_lse",) + t_path)))
+        hd256 = chain["launches"]["flash_attention_lse" + HD256]
+        tc = chain["calls"]["target"]
+        target_calls = tc.get("prefill", 0) + tc.get("decode", 0)
+        launch_rule = hd256 == n_attn * target_calls
+        self_ok, self_chain = _recurrent_chain(
+            target, target, prompts[:1], want[:1], new, max_len, t_path)
+        try:
+            ServingEngine(target, draft, mode="pipedec", max_len=max_len)
+            refusal = None
+        except NotImplementedError as exc:
+            refusal = str(exc)
+        refusal_ok = refusal is not None and "chain-mode" in refusal
+        long_ms = None
+        if cfg.rglru is not None and len(prompts[-1]) > cfg.rglru.window:
+            long = prompts[-1][None]
+            cache = target.init_cache(1, max_len)
+            long_ms = _eager_ms(lambda: target.prefill(long, cache),
+                                warmup=1, batches=3, per_batch=1)
+        for k in ("flash_attention_lse" + HD256,
+                  "flash_attention_lse" + HD256_WINDOW):
+            state["launches"][k] = (state["launches"].get(k, 0)
+                                    + chain["launches"][k])
+        ok = pp_ok and ch_ok and self_ok and refusal_ok and launch_rule
+        emit({"phase": f"family-{arch}", "ok": ok, "target": cfg.name,
+              "family": cfg.family, "draft": draft.cfg.name,
+              "layers": {"total": cfg.num_layers,
+                         "kinds": dict(collections.Counter(
+                             tf.layer_kinds(cfg))),
+                         "attention": n_attn, "windowed": n_win},
+              "reduced": {}, "d_model": cfg.d_model,
+              "head_dim": cfg.resolved_head_dim if n_attn else None,
+              "window": cfg.rglru.window if cfg.rglru else None,
+              "prompt_lens": [len(p) for p in prompts],
+              "new_tokens": new, "max_len": max_len, "init_s": init_s,
+              "params_gb": sum(p.numel() for p in target.model.parameters())
+              * 4 / 1e9,
+              "autoregressive_ms_per_token": ar_ms,
+              "long_prompt_prefill_ms": long_ms,
+              "pp": pp, "random_chain": chain, "self_chain": self_chain,
+              "hd256_launches_rule": {
+                  "ok": launch_rule, "hd256": hd256,
+                  "attention_layers": n_attn,
+                  "target_prefill_and_decode_calls": target_calls},
+              "pipedec_refusal": {"ok": refusal_ok, "message": refusal},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del target, draft
         _free()
         if not ok:
             raise AssertionError(f"family-{arch} failed: see its line")
@@ -3587,6 +3819,8 @@ def main() -> int:
                         *((f"family-{arch}", phase_family(arch))
                           for arch, _ in FAMILY_ARCHS
                           + FAMILY_MODAL_ARCHS),
+                        *((f"family-{arch}", phase_recurrent(arch))
+                          for arch, _ in FAMILY_RECURRENT_ARCHS),
                         ("family-db", phase_family_db),
                         ("family-int8", phase_family_int8),
                         ("sharded-check", phase_sharded_check)):

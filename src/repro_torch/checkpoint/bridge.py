@@ -6,7 +6,9 @@ with ``checkpoint.io.load_pytree``.  It is
 
   {"embed": {"table"}, "final_norm": {"scale"}, ["lm_head": {"table"}],
    ["prefix": [[sub-layer], ...]],   (a MoE config's first_dense layers)
-   "stack": [sub-layer],             (every leaf with a leading layer axis)
+   "stack": [sub-layer, ...],        (one per kind of the repeated unit,
+                                      every leaf with a leading reps axis)
+   ["tail": [sub-layer, ...]],       (the layers past the last whole unit)
    ["encoder": {"layers": {...}, "final_norm": {"scale"}}]}
                                      (an encoder-decoder's encoder tower)
 
@@ -16,11 +18,16 @@ cross-attention of an encoder-decoder holds plain GQA weights; the
 encoder's ``layers`` are {"norm1", "attn", "norm2", "mlp"} with every
 leaf stacked over the encoder's layers (no ``prefix`` part), which are
 ``model.encoder.layers[j]`` here.  The mixer holds w_q, w_k, w_v, w_o (and b_q,
-b_k, b_v with QKV bias) or MLA's w_dq, w_q, w_dkv, w_kr, w_ukv, w_o; the
-ffn an MLP's w_gate (not for GELU), w_up, w_down, or MoE's router, 3-D
-w_gate/w_up/w_down and "shared" (an MLP).  Layer ``i`` of the port is
-``prefix[i]``, then ``stack[j]`` is layer ``n_prefix + j``; a port
-weight's path in its layer is the JAX key path.  The port's own
+b_k, b_v with QKV bias) or MLA's w_dq, w_q, w_dkv, w_kr, w_ukv, w_o, or
+the SSD block's in_proj, conv_w, conv_b, dt_bias, A_log, D, norm,
+out_proj, or the RG-LRU block's in_x, in_y, conv_w, conv_b, w_a, w_i,
+lambda, out; the ffn (none for an ssm sub-layer) an MLP's w_gate (not for
+GELU), w_up, w_down, or MoE's router, 3-D w_gate/w_up/w_down and "shared"
+(an MLP).  With ``u`` sub-layer kinds in a unit (1, or the length of an
+RG-LRU pattern such as "rra") and ``reps`` units, layer ``i`` of the port
+is ``prefix[i]``, then ``stack[k]`` at reps index ``r`` is layer
+``n_prefix + r * u + k``, then ``tail[j]`` is layer ``n_prefix + reps * u
++ j``; a port weight's path in its layer is the JAX key path.  The port's own
 ``init_model`` draws from the same distributions with a
 ``torch.Generator`` but not the same values; only this bridge makes the
 two packages compute the same function.
@@ -83,20 +90,34 @@ def _jax_paths(tree, prefix=()):
         yield prefix
 
 
+def _unit_len(cfg: ModelConfig) -> int:
+    """Sub-layer kinds in the reference's repeated unit."""
+    if cfg.family != "ssm" and cfg.rglru is not None:
+        return len(cfg.rglru.pattern)
+    return 1
+
+
+def _layout(cfg: ModelConfig):
+    """(n_prefix, unit length, reps, tail length): the reference's
+    ``layout``."""
+    n_prefix = cfg.moe.first_dense if cfg.moe is not None else 0
+    u = _unit_len(cfg)
+    body = cfg.num_layers - n_prefix
+    return n_prefix, u, body // u, body % u
+
+
 def _layer_sources(cfg: ModelConfig, params: Mapping) -> list:
     """Per port layer, its JAX sub-layer dict and its index on the stacked
-    axis (None for an unstacked ``prefix`` layer): the reference's layout
-    is ``prefix[i]`` (the dense layers under a MoE config's
-    ``first_dense``), then ``stack[j]`` -> layer ``n_prefix + j``."""
-    n_prefix = cfg.moe.first_dense if cfg.moe is not None else 0
+    axis (None for an unstacked ``prefix`` or ``tail`` layer), in the
+    reference's order: ``prefix[i]``, then unit ``r``'s ``stack[k]`` at
+    index ``r``, then ``tail[j]``."""
+    n_prefix, u, reps, n_tail = _layout(cfg)
     out = []
     for i in range(n_prefix):
         (sub,) = params["prefix"][i]
         out.append((sub, None))
-    reps = cfg.num_layers - n_prefix
-    if reps:
-        (sub,) = params["stack"]   # one sub-layer kind per unit: attention
-        out += [(sub, j) for j in range(reps)]
+    out += [(params["stack"][k], r) for r in range(reps) for k in range(u)]
+    out += [(params["tail"][j], None) for j in range(n_tail)]
     return out
 
 
@@ -121,7 +142,7 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
     (fp32, or quantized for a ``quant="int8"`` model)."""
     cfg = model.cfg
     extra = set(params) - {"embed", "final_norm", "lm_head", "prefix",
-                           "stack", "encoder"}
+                           "stack", "tail", "encoder"}
     if extra:
         raise ValueError(f"not a decoder pytree of the port's families: "
                          f"extra keys {extra}")
@@ -135,13 +156,17 @@ def load_jax_params(model: Transformer, params: Mapping) -> Transformer:
     if model.lm_head is not None:
         _copy(model.lm_head.table, params["lm_head"]["table"],
               "lm_head.table")
-    if "stack" in params:
-        (sub,) = params["stack"]
-        n = np.asarray(next(iter(_leaf_arrays(sub)))).shape[0]
-        n_prefix = len(params.get("prefix", []))
-        if n_prefix + n != cfg.num_layers:
-            raise ValueError(f"stack has {n} layers and prefix {n_prefix}, "
-                             f"config {cfg.num_layers}")
+    n_prefix, u, reps, n_tail = _layout(cfg)
+    stack, tail = params.get("stack", []), params.get("tail", [])
+    n = (np.asarray(next(iter(_leaf_arrays(stack[0])))).shape[0]
+         if stack else 0)
+    if (len(params.get("prefix", [])), len(stack), n, len(tail)) != (
+            n_prefix, u if reps else 0, reps, n_tail):
+        raise ValueError(
+            f"prefix {len(params.get('prefix', []))}, stack of "
+            f"{len(stack)} kinds x {n} units and tail {len(tail)} do not "
+            f"lay out {cfg.num_layers} layers as the config does "
+            f"({n_prefix} + {reps} x {u} + {n_tail})")
     for i, (layer, (sub, j)) in enumerate(zip(model.layers,
                                               _layer_sources(cfg, params))):
         ours = dict(_layer_leaves(layer))
@@ -222,9 +247,10 @@ def _nest(pairs) -> dict:
 def to_jax_params(model: Transformer) -> dict:
     """The JAX parameter pytree of an fp32 ``model`` as numpy arrays:
     ``prefix`` (a MoE config's dense ``first_dense`` layers, one
-    ``[sub-layer]`` list each) and ``stack`` (a one-element list whose
-    leaves carry a leading layer axis), ``encoder`` (its layers stacked
-    the same way) for an encoder-decoder, no ``lm_head`` when the
+    ``[sub-layer]`` list each), ``stack`` (one sub-layer per kind of the
+    unit, its leaves carrying a leading reps axis), ``tail`` (the layers
+    past the last whole unit) when there is one, ``encoder`` (its layers
+    stacked the same way) for an encoder-decoder, no ``lm_head`` when the
     embeddings are tied.  ``load_jax_params`` of the result gives the same
     model back, value for value."""
     cfg = model.cfg
@@ -235,15 +261,18 @@ def to_jax_params(model: Transformer) -> dict:
            "final_norm": {"scale": _numpy(model.final_norm.scale)}}
     if model.lm_head is not None:
         out["lm_head"] = {"table": _numpy(model.lm_head.table)}
-    n_prefix = cfg.moe.first_dense if cfg.moe is not None else 0
+    n_prefix, u, reps, n_tail = _layout(cfg)
     layers = list(model.layers)
+
+    def one(layer):
+        return _nest((path, _numpy(w)) for path, w in _layer_leaves(layer))
     if n_prefix:
-        out["prefix"] = [[_nest((path, _numpy(w)) for path, w in
-                                _layer_leaves(layer))]
-                         for layer in layers[:n_prefix]]
-    stacked = layers[n_prefix:]
-    if stacked:
-        out["stack"] = [_stacked(stacked)]
+        out["prefix"] = [[one(layer)] for layer in layers[:n_prefix]]
+    if reps:
+        out["stack"] = [_stacked(layers[n_prefix + k:n_prefix + reps * u:u])
+                        for k in range(u)]
+    if n_tail:
+        out["tail"] = [one(layer) for layer in layers[n_prefix + reps * u:]]
     if model.encoder is not None:
         out["encoder"] = {
             "layers": _stacked(model.encoder.layers),

@@ -163,11 +163,13 @@ class ModelBundle:
                                     commit_mask)
 
     def init_cache(self, batch: int, max_len: int):
-        """Zeroed model KV cache on the model's device."""
+        """Zeroed model cache on the model's device: K/V per attention
+        layer, the zero state per recurrent layer."""
         return tf.init_cache(self.cfg, batch, max_len, device=self.device)
 
     def init_tree_caches(self, batch: int, capacity: int):
-        """Zeroed tree KV caches on the model's device."""
+        """Zeroed tree KV caches on the model's device (None for a
+        recurrent layer)."""
         return tf.init_tree_caches(self.cfg, batch, capacity,
                                    device=self.device)
 
@@ -184,8 +186,10 @@ class ModelBundle:
         cfg = self.cfg
         if cfg.quant:
             raise ValueError(f"{cfg.name} is already quantized ({cfg.quant})")
-        if (cfg.mla is not None or cfg.moe is not None or cfg.ssm is not None
-                or cfg.rglru is not None or cfg.encoder is not None):
+        # MoE, MLA and the recurrent families fail check_supported's int8
+        # branch; an encoder-decoder is refused here
+        tf.check_supported(dataclasses.replace(cfg, quant="int8"))
+        if cfg.encoder is not None:
             raise NotImplementedError(
                 f"int8 serving supports dense attention only, not "
                 f"{cfg.name!r}")

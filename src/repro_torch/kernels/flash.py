@@ -36,7 +36,9 @@ Dispatch: a CPU tensor goes to ``flash_attention_lse_plain``; a CUDA
 tensor goes to the kernel, or the wrapper raises.  ``launches`` and
 ``launches_int8`` on the wrapper count kernel launches in the fp32 and the
 int8 mode; ``launches_hd256`` and ``launches_int8_hd256`` count those of
-them that ran the head_dim 256 instance (Gemma).
+them that ran the head_dim 256 instance (Gemma, RecurrentGemma), and
+``launches_hd256_window`` / ``launches_int8_hd256_window`` those of these
+with a window (RecurrentGemma's local attention).
 """
 from __future__ import annotations
 
@@ -277,8 +279,10 @@ def _launch(q, k, v, kv_len, qpos, *, scale, window, causal, k_scale,
     build.check("flash_attention_lse", err)
     mode = "launches_int8" if int8 else "launches"
     bump_attr(flash_attention_lse, mode)
-    if hd > 128:     # the head_dim 256 instance (Gemma)
+    if hd > 128:     # the head_dim 256 instance (Gemma, RecurrentGemma)
         bump_attr(flash_attention_lse, mode + "_hd256")
+        if window > 0:   # RecurrentGemma's local attention
+            bump_attr(flash_attention_lse, mode + "_hd256_window")
     return o, m, l
 
 
@@ -310,3 +314,5 @@ flash_attention_lse.launches = 0
 flash_attention_lse.launches_int8 = 0
 flash_attention_lse.launches_hd256 = 0
 flash_attention_lse.launches_int8_hd256 = 0
+flash_attention_lse.launches_hd256_window = 0
+flash_attention_lse.launches_int8_hd256_window = 0

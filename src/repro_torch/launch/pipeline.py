@@ -91,8 +91,16 @@ def check_ring_supported(cfg: ModelConfig) -> None:
     MoE, MLA, QKV bias, other MLPs and an encoder run in the local
     executors; on the ring and the async executor they are ROADMAP item
     17.  A VLM config passes, served text-only (``check_ring_bundles``
-    refuses its prefix)."""
+    refuses its prefix).  Recurrent configs are refused up front: the
+    ring runs SpecPipe-DB's tree verify, which a recurrent sub-layer does
+    not have (they speculate in chain mode)."""
     tf.check_supported(cfg)
+    if tf.is_recurrent(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the stage ring and the async executor run "
+            "SpecPipe-DB's tree verify, which recurrent (ssm/rglru) "
+            f"sub-layers do not have; {tf.CHAIN_MODE} (ROADMAP item 17 "
+            "keeps them off the ring)")
     bad = [name for name, on in (
         ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
         ("qkv_bias", cfg.qkv_bias), ("encoder", cfg.encoder is not None),

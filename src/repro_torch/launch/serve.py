@@ -18,7 +18,14 @@ of the registry at their smoke sizes (the JAX CLI's flags and defaults):
 
 ``internvl2-26b`` and ``whisper-base`` are served text-only, with no
 vision prefix and no encoder output, as the reference's CLI serves them
-(a Whisper decoder then skips its cross-attention).
+(a Whisper decoder then skips its cross-attention).  The recurrent
+families are served in pp mode; the tree modes refuse them with
+``NotImplementedError`` (recurrent models speculate in chain mode,
+``core.chain``, which this CLI does not offer, as the reference's does
+not):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --target-arch recurrentgemma-9b --mode pp --device cpu
 
 ``--quant int8`` serves both bundles quantized
 (``ModelBundle.quantize()``: int8 projections through the dequant-matmul

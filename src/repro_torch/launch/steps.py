@@ -4,7 +4,8 @@ The JAX package's ``repro/launch/steps.py`` ``make_train_step`` for the
 dense, MoE and MLA decoders: the loss (with the MoE router term) and its
 gradients under autograd (attention in plain PyTorch, no kernel), then
 the weights updated in place.  The modality families (a vision prefix or
-an encoder in the batch) are ROADMAP item 16 and are refused.
+an encoder in the batch) and the recurrent families are ROADMAP item 16
+and are refused.
 """
 from __future__ import annotations
 
@@ -26,12 +27,16 @@ def _check(model: tf.Transformer, cfg: ModelConfig) -> None:
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for a configuration the trainer does not train yet: the
     modality families, whose batches carry a vision prefix or encoder
-    frames (ROADMAP item 16)."""
+    frames, and the recurrent families (ROADMAP item 16)."""
     tf.check_supported(cfg)
     if cfg.prefix_tokens > 0 or cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: training the modality families (a vision prefix "
             "or an encoder) is ROADMAP item 16")
+    if tf.is_recurrent(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training the recurrent families (ssm/rglru "
+            "sub-layers) is ROADMAP item 16")
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,

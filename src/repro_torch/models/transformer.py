@@ -1,10 +1,17 @@
-"""Decoder of the attention families: the dense (GQA, with or without QKV
-bias; SwiGLU, GeGLU or GELU MLP), MoE, MLA and modality (VLM prefix,
-encoder-decoder) subset of the JAX package's
-``repro/models/transformer.py``.  The reference's layer layout (dense
-``prefix`` layers for a MoE config's ``first_dense``, then the scanned
-``stack``) is one ``DecoderLayer`` per layer here, each with an MLP or a
-MoE block (``config.layer_is_moe``).
+"""Decoder of every family the JAX package's ``repro/models/transformer.py``
+serves: dense (GQA, with or without QKV bias; SwiGLU, GeGLU or GELU MLP),
+MoE, MLA, modality (VLM prefix, encoder-decoder) and recurrent (Mamba-2
+SSD, RecurrentGemma's RG-LRU with local attention, and attention+SSD
+hybrids).  The reference's layer layout (dense ``prefix`` layers for a MoE
+config's ``first_dense``, then ``reps`` scanned units of the config's
+sub-layer kinds, then a ``tail`` of the first kinds of a unit) is one
+``DecoderLayer`` per layer here, of kind ``cfg.block_kind(i)``
+(``layer_kinds``, the same order): ``attn`` and ``local`` layers attend
+(a ``local`` one within ``cfg.rglru.window``, every other kind within
+``cfg.sliding_window``: ``layer_windows``), ``ssm`` layers run the SSD
+mixer with no feed-forward block, ``rglru`` layers the RG-LRU mixer and an
+MLP; attention layers have an MLP or a MoE block
+(``config.layer_is_moe``).
 
 Modality inputs, as in the reference: ``prefix_embeds`` [1|B, P, d] (a
 VLM's vision prefix, from the stub frontend) are put before the prompt's
@@ -40,22 +47,33 @@ helpers ``slice_cache_rows`` / ``update_cache_rows`` /
 ``where_cache_rows``, ``commit_tree_nodes`` (the per-row two-level sync)
 and ``remap_tree_cache_rows`` (the per-row post-prune compaction).
 
-Caches are lists with one ``{"k", "v"}`` dict of [B, L, KV, hd] per layer
-(plus ``{"k_scale", "v_scale"}`` [B, L, KV] for an int8 model, whose K/V
-are int8; ``{"c_kv" [B, L, r], "k_rope" [B, L, rope]}`` for MLA), updated
-in place (see ``attention``).  Every leaf keeps its length on axis 1, so
-the row helpers below take every leaf alike (the reference's
-``CACHE_LEN_AXIS_FROM_END`` exists for its stacked layers).  A leaf may
-instead be block-paged (``models.paging.Paged``); every function here
-takes dense and paged leaves alike, and the paged ones reach the layers
-as they are (the port has no layer scan, so nothing densifies them).  Row offsets
+Caches are lists with one ``{"k", "v"}`` dict of [B, L, KV, hd] per
+attention layer (plus ``{"k_scale", "v_scale"}`` [B, L, KV] for an int8
+model, whose K/V are int8; ``{"c_kv" [B, L, r], "k_rope" [B, L, rope]}``
+for MLA), and one recurrent state dict per recurrent layer (``{"conv",
+"ssd"}`` for SSD, ``{"conv", "h"}`` for RG-LRU, batch on axis 0 and no
+length axis), all updated in place (see ``attention``).  A prefill starts
+each recurrence from the zero state, never from the cache's contents, and
+copies the final state into the cache, so a recycled arena slot is clean
+and an arena's slot views see the new state.  Tree caches have ``None``
+for recurrent layers: a tree layer has no single successor state, so
+tree verification and chunked prefill refuse recurrent layers
+(``check_tree_supported``); recurrent models speculate in chain mode
+(``core.chain``).  Every attention leaf keeps its length on axis 1, so
+the row helpers below take every attention leaf alike (the reference's
+``CACHE_LEN_AXIS_FROM_END`` exists for its stacked layers); recurrent
+leaves and ``None`` layers pass through them by slot (axis 0).  An
+attention leaf may instead be block-paged (``models.paging.Paged``);
+every function here takes dense and paged leaves alike, and the paged ones
+reach the layers as they are (the port has no layer scan, so nothing
+densifies them).  Row offsets
 (cache lengths, tree write offsets) are host ints, so every dense write is
 checked to fit before it is made; bounds that the kernels read are built
 once per step on the model's device.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -71,63 +89,124 @@ from repro_torch.models.layers import (MLP, MLP_VARIANTS, RMSNorm, embed,
                                        embed_init_, mlp, param, unembed,
                                        wide)
 from repro_torch.models.moe import MoE, moe_forward
+from repro_torch.models.rglru import (RGLRU, init_rglru_state, rglru_decode,
+                                      rglru_forward)
+from repro_torch.models.ssm import (SSM, init_ssm_state, ssm_decode,
+                                    ssm_forward)
+
+RECURRENT_KINDS = ("ssm", "rglru")
+CHAIN_MODE = ("recurrent architectures speculate in chain-mode "
+              "(repro_torch.core.chain.ChainSpecEngine)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration outside what the port runs: decoders of
     attention layers (GQA with or without QKV bias, or MLA) and MLP or MoE
     feed-forward blocks, with a vision prefix (``vlm``) or an encoder and
-    cross-attention (``audio``); int8 for dense attention only.  The
-    recurrent families (ssm, rglru) are ROADMAP item 14c."""
+    cross-attention (``audio``), and the recurrent families (``ssm``:
+    Mamba-2; ``hybrid``: RG-LRU and/or SSD sub-layers beside local
+    attention); int8 for dense attention only."""
     bad = [name for name, on in (
-        ("ssm", cfg.ssm is not None), ("rglru", cfg.rglru is not None),
-        (f"family={cfg.family}",
-         cfg.family not in ("dense", "moe", "vlm", "audio")),
+        (f"family={cfg.family}", cfg.family not in (
+            "dense", "moe", "vlm", "audio", "ssm", "hybrid")),
+        ("ssm family without an ssm config",
+         cfg.family == "ssm" and cfg.ssm is None),
+        ("hybrid family without an rglru pattern",
+         cfg.family == "hybrid" and cfg.rglru is None),
+        ("an ssm sub-layer without an ssm config",
+         cfg.rglru is not None and "s" in cfg.rglru.pattern
+         and cfg.ssm is None),
         (f"mlp_variant={cfg.mlp_variant}",
          cfg.mlp_variant not in MLP_VARIANTS)) if on]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense, MoE, MLA, VLM and "
-            f"encoder-decoder models; {', '.join(bad)} (the recurrent "
-            "families) come in the next slice of the port, ROADMAP item "
-            "14c")
+            f"{cfg.name}: the port runs dense, MoE, MLA, VLM, "
+            f"encoder-decoder and recurrent models; not {', '.join(bad)}")
     if cfg.quant not in ("", "int8"):
         raise NotImplementedError(f"{cfg.name}: quant={cfg.quant!r}")
-    if cfg.quant == "int8" and (cfg.moe is not None or cfg.mla is not None):
+    if cfg.quant == "int8" and (cfg.moe is not None or cfg.mla is not None
+                                or is_recurrent(cfg)):
         raise NotImplementedError(
             f"{cfg.name}: int8 serving supports dense attention only")
 
 
-class DecoderLayer(nn.Module):
-    """Pre-norm attention (GQA, or MLA) + feed-forward block (an MLP of
-    the config's variant, or MoE when ``moe``); an encoder-decoder's layer
-    also has a pre-norm cross-attention (``cross_norm``, ``cross``: plain
-    GQA weights) between the two."""
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Each layer's sub-layer kind in order: 'attn', 'local', 'ssm' or
+    'rglru' (the reference's prefix, units and tail, flattened)."""
+    return [cfg.block_kind(i) for i in range(cfg.num_layers)]
 
-    def __init__(self, cfg: ModelConfig, device, moe: bool = False):
+
+def layer_windows(cfg: ModelConfig) -> List[int]:
+    """Each layer's attention window (0: none): ``cfg.rglru.window`` for a
+    ``local`` layer, ``cfg.sliding_window`` for every other kind (the
+    reference's ``_window``)."""
+    return [cfg.rglru.window if kind == "local" else cfg.sliding_window
+            for kind in layer_kinds(cfg)]
+
+
+def is_recurrent(cfg: ModelConfig) -> bool:
+    """Whether any layer of ``cfg`` is recurrent (SSD or RG-LRU)."""
+    return any(k in RECURRENT_KINDS for k in layer_kinds(cfg))
+
+
+def check_tree_supported(cfg: ModelConfig, what: str = "tree-verify") -> None:
+    """Raise for a recurrent configuration: a tree layer (or a prompt
+    chunk re-entering the middle of a sequence) has no single recurrent
+    successor state, so ``what`` through an ssm or rglru sub-layer is
+    undefined, as in the reference."""
+    kinds = sorted({k for k in layer_kinds(cfg) if k in RECURRENT_KINDS})
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} through an {'/'.join(kinds)} sub-layer is "
+            f"undefined; {CHAIN_MODE}")
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm mixer of ``kind`` + feed-forward block.  The mixer is
+    attention (GQA, or MLA) for ``attn``/``local``, the SSD block for
+    ``ssm``, the RG-LRU block for ``rglru``; the feed-forward block is an
+    MLP of the config's variant, or MoE when ``moe``, and an ``ssm`` layer
+    has none (no ``norm2``/``ffn``, as in the reference).  An
+    encoder-decoder's layer also has a pre-norm cross-attention
+    (``cross_norm``, ``cross``: plain GQA weights) between the two."""
+
+    def __init__(self, cfg: ModelConfig, device, moe: bool = False,
+                 kind: str = "attn"):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.kind = cfg, kind
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.mixer = (attn.MLAttention(cfg, device) if cfg.mla is not None
-                      else attn.Attention(cfg, device))
-        if cfg.is_encdec:
+        if kind == "ssm":
+            self.mixer = SSM(cfg, device)
+        elif kind == "rglru":
+            self.mixer = RGLRU(cfg, device)
+        elif kind in ("attn", "local"):
+            self.mixer = (attn.MLAttention(cfg, device)
+                          if cfg.mla is not None
+                          else attn.Attention(cfg, device))
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
+        self.cross = None
+        if cfg.is_encdec and kind in ("attn", "local"):
             self.cross_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
             self.cross = attn.Attention(cfg, device)
-        self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.ffn = (MoE(cfg, device) if moe else
-                    MLP(cfg.d_model, cfg.d_ff, device,
-                        quant=cfg.quant == "int8",
-                        variant=cfg.mlp_variant))
+        self.ffn = None
+        if kind != "ssm" and (cfg.d_ff > 0 or cfg.moe is not None):
+            self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+            self.ffn = (MoE(cfg, device) if moe else
+                        MLP(cfg.d_model, cfg.d_ff, device,
+                            quant=cfg.quant == "int8",
+                            variant=cfg.mlp_variant))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Draw the layer's weights from ``gen``."""
         self.norm1.reset_parameters()
         self.mixer.reset_parameters(gen)
-        if self.cfg.is_encdec:
+        if self.cross is not None:
             self.cross_norm.reset_parameters()
             self.cross.reset_parameters(gen)
-        self.norm2.reset_parameters()
-        self.ffn.reset_parameters(gen)
+        if self.ffn is not None:
+            self.norm2.reset_parameters()
+            self.ffn.reset_parameters(gen)
 
 
 class Embedding(nn.Module):
@@ -155,10 +234,12 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else Embedding(cfg.vocab_size, cfg.d_model, device))
         # the reference's layout (``prefix`` dense layers below a MoE
-        # ``stack``) is one DecoderLayer per layer here
-        self.layers = nn.ModuleList(DecoderLayer(cfg, device,
-                                                 cfg.layer_is_moe(i))
-                                    for i in range(cfg.num_layers))
+        # ``stack``, units of sub-layer kinds, a ``tail``) is one
+        # DecoderLayer per layer here
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, device, cfg.layer_is_moe(i), kind)
+            for i, kind in enumerate(layer_kinds(cfg)))
+        self.windows = layer_windows(cfg)
         self.encoder = Encoder(cfg, device) if cfg.is_encdec else None
 
     @property
@@ -200,17 +281,30 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 # --------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> List[dict]:
-    """Model KV cache: one zeroed {"k", "v"} [batch, max_len, KV, hd] per
-    layer (int8, with fp32 per-row scales, for an int8 model)."""
+    """Model cache: per attention layer one zeroed {"k", "v"} [batch,
+    max_len, KV, hd] (int8, with fp32 per-row scales, for an int8 model),
+    per recurrent layer its zeroed state ({"conv", "ssd"} or {"conv",
+    "h"}, batch rows first)."""
     dev = resolve_device(device)
-    return [attn.init_kv_cache(cfg, batch, max_len, dev)
-            for _ in range(cfg.num_layers)]
+    out = []
+    for kind in layer_kinds(cfg):
+        if kind == "ssm":
+            out.append(init_ssm_state(cfg, batch, dev))
+        elif kind == "rglru":
+            out.append(init_rglru_state(cfg, batch, dev))
+        else:
+            out.append(attn.init_kv_cache(cfg, batch, max_len, dev))
+    return out
 
 
 def init_tree_caches(cfg: ModelConfig, batch: int, capacity: int, *,
-                     device: DeviceLike = None) -> List[dict]:
-    """Tree (level-2) KV caches: ``capacity`` rows per layer."""
-    return init_cache(cfg, batch, capacity, device=device)
+                     device: DeviceLike = None) -> List[Optional[dict]]:
+    """Tree (level-2) KV caches: ``capacity`` rows per attention layer,
+    None for a recurrent layer (it has no tree state)."""
+    dev = resolve_device(device)
+    return [None if kind in RECURRENT_KINDS else
+            attn.init_kv_cache(cfg, batch, capacity, dev)
+            for kind in layer_kinds(cfg)]
 
 
 # --------------------------------------------------------------------------
@@ -266,13 +360,21 @@ def _cross(model: Transformer, cross_kv, *, train: bool = False):
     return cross
 
 
-def _block(i: int, layer: DecoderLayer, x, attend, aux=None, cross=None):
-    """Residual block ``i``; ``attend(i, mixer, h)`` is its attention and
+def _block(i: int, layer: DecoderLayer, x, attend, aux=None, cross=None,
+           recur=None):
+    """Residual block ``i``; ``attend(i, mixer, h)`` is its attention,
+    ``recur(i, layer, h)`` its recurrent mixer (an ssm or rglru layer) and
     ``cross(i, p, h)``, when given, its cross-attention.  A MoE block
     appends its router term to ``aux`` when a list is given."""
-    x = x + attend(i, layer.mixer, layer.norm1(x))
-    if cross is not None:
+    h = layer.norm1(x)
+    if layer.kind in RECURRENT_KINDS:
+        x = x + recur(i, layer, h)
+    else:
+        x = x + attend(i, layer.mixer, h)
+    if cross is not None and layer.cross is not None:
         x = x + cross(i, layer.cross, layer.cross_norm(x))
+    if layer.ffn is None:
+        return x
     h = layer.norm2(x)
     if isinstance(layer.ffn, MoE):
         y, a = moe_forward(layer.ffn, layer.cfg, h)
@@ -283,19 +385,57 @@ def _block(i: int, layer: DecoderLayer, x, attend, aux=None, cross=None):
 
 
 def _run_layers(model: Transformer, x, attend, *, remat: bool = False,
-                aux=None, cross=None):
+                aux=None, cross=None, recur=None):
     """The residual blocks in order; with ``remat`` each block keeps only
     its input for backward and recomputes the rest there
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
     MoE blocks append their router terms to ``aux`` (a list) when given;
-    ``cross`` is the blocks' cross-attention (``_cross``)."""
+    ``cross`` is the blocks' cross-attention (``_cross``), ``recur`` the
+    recurrent layers' mixer for this mode (``_recur_*``)."""
     for i, layer in enumerate(model.layers):
         if remat:
-            x = checkpoint(_block, i, layer, x, attend, aux, cross,
+            x = checkpoint(_block, i, layer, x, attend, aux, cross, recur,
                            use_reentrant=False)
         else:
-            x = _block(i, layer, x, attend, aux, cross)
+            x = _block(i, layer, x, attend, aux, cross, recur)
     return x
+
+
+def _mix_full(layer: DecoderLayer, h):
+    """(y, final state) of a recurrent mixer over whole sequences
+    ``h`` [B,S,d], from the zero state."""
+    if layer.kind == "ssm":
+        return ssm_forward(layer.mixer, layer.cfg, h)
+    return rglru_forward(layer.mixer, layer.cfg, h)
+
+
+def _recur_train(i, layer, h):
+    """Whole-sequence recurrent mixer with no cache (training forward)."""
+    return _mix_full(layer, h)[0]
+
+
+def _recur_prefill(cache):
+    """The prefill's recurrent mixer: from the zero state (never the
+    cache's old contents, which a recycled slot still holds), then the
+    final state copied into ``cache[i]`` in place."""
+    def recur(i, layer, h):
+        y, state = _mix_full(layer, h)
+        for name, buf in cache[i].items():
+            buf.copy_(state[name])
+        return y
+    return recur
+
+
+def _recur_decode(cache):
+    """The decode step's recurrent mixer: one token against ``cache[i]``,
+    the new state copied back in place."""
+    def recur(i, layer, h):
+        fn = ssm_decode if layer.kind == "ssm" else rglru_decode
+        y, state = fn(layer.mixer, layer.cfg, h, cache[i])
+        for name, buf in cache[i].items():
+            buf.copy_(state[name])
+        return y
+    return recur
 
 
 def _head(model: Transformer) -> torch.Tensor:
@@ -319,13 +459,13 @@ def _hidden(model: Transformer, tokens, *, prefix_embeds=None,
 
     def attend(i, mixer, h):
         return attn.attn_train(mixer, cfg, h, positions,
-                               window=cfg.sliding_window)
+                               window=model.windows[i])
 
     aux = []
     x = _run_layers(model, x, attend, remat=remat, aux=aux,
                     cross=_cross(model, None if enc_out is None else
                                  encode_cross_kv(model, enc_out),
-                                 train=True))
+                                 train=True), recur=_recur_train)
     total = torch.zeros((), dtype=wide(x).dtype, device=x.device)
     for a in aux:
         total = total + a
@@ -403,11 +543,11 @@ def prefill(model: Transformer, tokens, cache, *, prefix_embeds=None,
 
     def attend(i, mixer, h):
         y, _ = attn.attn_forward(mixer, cfg, h, positions, cache=cache[i],
-                                 window=cfg.sliding_window)
+                                 window=model.windows[i])
         return y
 
-    x = _run_layers(model, x, attend,
-                    cross=_cross(model, cross_kv))
+    x = _run_layers(model, x, attend, cross=_cross(model, cross_kv),
+                    recur=_recur_prefill(cache))
     return _logits(model, x[:, -1]), cache
 
 
@@ -420,8 +560,10 @@ def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
     attending over the rows earlier chunks wrote
     (``attention.attn_prefill_chunk``); rows past the cache's end are
     dropped, and batch rows whose ``on[b]`` is False are left untouched.
-    Returns (logits [B,s,V] of every chunk position, cache)."""
+    Returns (logits [B,s,V] of every chunk position, cache).  Recurrent
+    models refuse (``check_tree_supported``): they prefill whole prompts."""
     cfg = model.cfg
+    check_tree_supported(cfg, "chunked prefill")
     tokens = _tokens(model, tokens)
     b, s = tokens.shape
     start = host_rows(chunk_start, b)
@@ -432,7 +574,7 @@ def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
     def attend(i, mixer, h):
         y, _ = attn.attn_prefill_chunk(mixer, cfg, h, positions, cache[i],
                                        start, on=on,
-                                       window=cfg.sliding_window)
+                                       window=model.windows[i])
         return y
 
     x = _run_layers(model, x, attend,
@@ -444,7 +586,8 @@ def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
 def decode_step(model: Transformer, token, cache, cache_len, *,
                 cross_kv=None):
     """token [B] -> (logits [B,V], cache); row b's token sits at position
-    ``cache_len[b]`` (an int broadcasts) and is written there."""
+    ``cache_len[b]`` (an int broadcasts) and is written there; recurrent
+    layers advance their state one step, in place."""
     cfg = model.cfg
     token = _tokens(model, token).reshape(-1)
     b = token.shape[0]
@@ -455,11 +598,11 @@ def decode_step(model: Transformer, token, cache, cache_len, *,
 
     def attend(i, mixer, h):
         y, _ = attn.attn_decode(mixer, cfg, h, position, cache[i], rows,
-                                kv_len, window=cfg.sliding_window)
+                                kv_len, window=model.windows[i])
         return y
 
-    x = _run_layers(model, x, attend,
-                    cross=_cross(model, cross_kv))
+    x = _run_layers(model, x, attend, cross=_cross(model, cross_kv),
+                    recur=_recur_decode(cache))
     return _logits(model, x[:, 0]), cache
 
 
@@ -476,9 +619,11 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
     row (ints broadcast).  A row with no committed prefix (an empty
     slot's, ``cache_len`` 0) whose mask is all false attends as the
     reference's joint softmax does (``attention.attn_tree_verify``'s
-    ``empty``).  Returns (logits [B,n,V], tree_caches).
+    ``empty``).  Returns (logits [B,n,V], tree_caches).  Recurrent models
+    refuse (``check_tree_supported``): they speculate in chain mode.
     """
     cfg = model.cfg
+    check_tree_supported(cfg)
     dev = model.device
     node_tokens = _tokens(model, node_tokens)
     b, n = node_tokens.shape
@@ -504,7 +649,7 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
             mixer, cfg, h, positions, model_cache=cache[i],
             model_len=model_len, tree_cache=tree_caches[i],
             tree_write_index=write_at, tree_mask=mask,
-            window=cfg.sliding_window, tree_write_rows=write_rows,
+            window=model.windows[i], tree_write_rows=write_rows,
             empty=empty)
         return y
 
@@ -532,16 +677,19 @@ def commit_tree_node(cache, tree_caches, node_idx: int, model_len: int):
 # slot-stacked cache rows (the SpecPipe-DB KV arena)
 # --------------------------------------------------------------------------
 def _leaf_map(fn, *caches):
-    """``fn(leaf, *others)`` over the leaves of per-layer cache lists."""
-    return [{name: fn(buf, *(c[i][name] for c in caches[1:]))
+    """``fn(leaf, *others)`` over the leaves of per-layer cache lists; a
+    ``None`` layer (a recurrent layer's tree cache) stays None."""
+    return [None if layer is None else
+            {name: fn(buf, *(c[i][name] for c in caches[1:]))
              for name, buf in layer.items()}
             for i, layer in enumerate(caches[0])]
 
 
 def slice_cache_rows(cache, start: int, size: int):
     """Slot rows [start, start + size) of every leaf, as views: dense
-    slices, and table slices over the shared pool for paged leaves.
-    Writes through the views land in the arena."""
+    slices (on axis 0, recurrent state too), and table slices over the
+    shared pool for paged leaves.  Writes through the views land in the
+    arena."""
     return _leaf_map(lambda buf: paging.slice_slots(buf, start, size)
                      if paging.is_paged(buf) else buf[start:start + size],
                      cache)

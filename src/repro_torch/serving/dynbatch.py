@@ -63,6 +63,7 @@ from repro_torch.core.dynbatch import TreeBatch
 from repro_torch.core.pipedec import (DecodeState, EntryInputs, GenStats,
                                       PipeDecConfig, PipeDecEngine)
 from repro_torch.core.speculative import ModelBundle
+from repro_torch.models import transformer as tf
 from repro_torch.serving.executor import LocalFusedExecutor, PipelineExecutor
 from repro_torch.serving.scheduler import DynamicBatchScheduler, KVArena
 
@@ -163,7 +164,10 @@ class SpecPipeDBEngine:
         """``executor`` selects the compute backend (default: a dense
         ``LocalFusedExecutor``); ``fused=False`` runs the looped per-slot
         reference (two tree verifies per request per timestep), which the
-        fused path is held to."""
+        fused path is held to.  Recurrent models refuse: their sub-layers
+        have no tree verify (``transformer.check_tree_supported``)."""
+        for bundle in (target, draft):
+            tf.check_tree_supported(bundle.cfg, "SpecPipe-DB's tree verify")
         self.fused = fused
         self.pcfg = pcfg or PipeDecConfig()
         self.inner = PipeDecEngine(target, draft, self.pcfg, max_len=max_len)

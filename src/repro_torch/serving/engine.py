@@ -23,7 +23,10 @@
                             one); the run's ``DBStats`` stay in
                             ``db_stats``.
 
-Every mode stops a request at ``eos_token``, the eos included.
+Every mode stops a request at ``eos_token``, the eos included.  A
+recurrent target (Mamba-2, RecurrentGemma) is served in pp mode; the two
+tree modes refuse it (``transformer.check_tree_supported``: recurrent
+models speculate in chain mode, ``core.chain``).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
 from repro_torch.core.speculative import (ModelBundle, SamplingParams,
                                           select_token)
+from repro_torch.models import transformer as tf
 
 MODES = ("pp", "pipedec", "pipedec-db")
 
@@ -93,6 +97,9 @@ class ServingEngine:
             raise ValueError(f"{mode} mode needs a draft model")
         if executor is not None and mode != "pipedec-db":
             raise ValueError("executor backends apply to mode='pipedec-db'")
+        if mode != "pp":   # the tree modes: recurrent models run pp only
+            for bundle in (target, draft):
+                tf.check_tree_supported(bundle.cfg, f"{mode}'s tree verify")
         self.target, self.draft, self.mode = target, draft, mode
         self.max_batch, self.max_len = max_batch, max_len
         self.pipedec_cfg = pipedec or PipeDecConfig()

@@ -11,7 +11,8 @@ and decodes beside the rest.  The pieces:
     leaves carry a leading slot axis), so the fused per-timestep tree
     verify reads every in-flight request from one buffer.  Slots are
     recycled without zeroing: every mask is bounded by the new occupant's
-    ``model_len`` or ancestor mask, so stale rows never leak.
+    ``model_len`` or ancestor mask, so stale rows never leak, and a
+    recurrent layer's state is overwritten by the new occupant's prefill.
   * ``PagePool`` / ``PageAllocator`` / ``PagedKVArena`` - the block-paged
     arena: every leaf is a pool of physical blocks behind a per-slot
     block table (``models.paging``).  Admission backs a request's horizon
@@ -85,10 +86,15 @@ class SlotPool:
         self._free.append(slot)
 
 
+def _device(buf) -> torch.device:
+    """The device of a dense or paged leaf."""
+    return (buf.pages if paging.is_paged(buf) else buf).device
+
+
 def _cache_bytes(cache) -> int:
     total = 0
     for layer in cache:
-        for buf in layer.values():
+        for buf in (layer or {}).values():
             arr = buf.pages if paging.is_paged(buf) else buf
             total += arr.numel() * arr.element_size()
     return total
@@ -99,8 +105,9 @@ class KVArena(SlotPool):
     recycled across requests.
 
     ``stacked`` is (t_cache, d_cache, t_tree, d_tree), every leaf with a
-    leading slot axis: what the fused dispatch and the batched commit read
-    and write in place.  ``caches(slot)`` gives a slot's batch-1 views for
+    leading slot axis (a recurrent layer's state too; its tree cache is
+    None): what the fused dispatch and the batched commit read and write
+    in place.  ``caches(slot)`` gives a slot's batch-1 views for
     admission prefill; ``store`` writes rows back (a no-op for the views,
     which write in place)."""
 
@@ -115,12 +122,13 @@ class KVArena(SlotPool):
         """Zeroed dense (t_cache, d_cache, t_tree, d_tree) for ``slots``
         slots (on the models' devices unless ``device`` is given)."""
         out = []
-        for bundle, cap in ((self.target, self.max_len),
-                            (self.draft, self.max_len),
-                            (self.target, self.tree_capacity),
-                            (self.draft, self.tree_capacity)):
-            out.append(tf.init_cache(bundle.cfg, slots, cap,
-                                     device=device or bundle.device))
+        for bundle, cap, make in (
+                (self.target, self.max_len, tf.init_cache),
+                (self.draft, self.max_len, tf.init_cache),
+                (self.target, self.tree_capacity, tf.init_tree_caches),
+                (self.draft, self.tree_capacity, tf.init_tree_caches)):
+            out.append(make(bundle.cfg, slots, cap,
+                            device=device or bundle.device))
         return out
 
     def bytes_per_slot(self) -> int:
@@ -293,8 +301,10 @@ class PageAllocator:
 class PagedKVArena(KVArena):
     """Block-paged KV arenas behind the ``KVArena`` interface.
 
-    Every leaf (K/V, and the int8 scales) is a ``paging.Paged`` pool
-    behind the allocator's table of its kind; the leaves of a kind share
+    Every length-indexed leaf (K/V, and the int8 scales) is a
+    ``paging.Paged`` pool behind the allocator's table of its kind; a
+    recurrent layer's state stays dense ``[slots, ...]`` and has no tree
+    arena (None); the leaves of a kind share
     one table tensor on the card, which ``_sync_tables`` overwrites after
     each allocation change.  The fused dispatches pass the paged leaves to
     the layers as they are (the paged kernels read the pools through the
@@ -339,12 +349,24 @@ class PagedKVArena(KVArena):
     def _paginate(self, bundle, kind: str, length: int) -> list:
         pool = self.pages.model if kind == "model" else self.pages.tree
         table = self._tables[kind]
-        proto = tf.init_cache(bundle.cfg, 1, 1, device="meta")
-        return [{name: paging.Paged(
-            torch.zeros(((pool.n_blocks + 1) * self.page, *buf.shape[2:]),
-                        dtype=buf.dtype, device=bundle.device),
-            table, self.page, length) for name, buf in layer.items()}
-            for layer in proto]
+        make = tf.init_cache if kind == "model" else tf.init_tree_caches
+        proto = make(bundle.cfg, 1, 1, device="meta")
+        out = []
+        for layer_kind, layer in zip(tf.layer_kinds(bundle.cfg), proto):
+            if layer_kind in tf.RECURRENT_KINDS:
+                # dense slot rows (no length axis), no tree arena
+                out.append(None if layer is None else
+                           {name: torch.zeros((self.slots, *buf.shape[1:]),
+                                              dtype=buf.dtype,
+                                              device=bundle.device)
+                            for name, buf in layer.items()})
+                continue
+            out.append({name: paging.Paged(
+                torch.zeros(((pool.n_blocks + 1) * self.page,
+                             *buf.shape[2:]), dtype=buf.dtype,
+                            device=bundle.device),
+                table, self.page, length) for name, buf in layer.items()})
+        return out
 
     def _ensure(self) -> None:
         if self._stacked is not None:
@@ -445,7 +467,8 @@ class PagedKVArena(KVArena):
         if slot not in self._in_use or slot in self._swapped:
             raise RuntimeError(f"slot {slot} cannot be swapped out")
         self._swapped[slot] = [
-            [{k: v.cpu() for k, v in layer.items()}
+            [None if layer is None else {k: v.cpu() for k, v in
+                                         layer.items()}
              for layer in paging.densify(tf.slice_cache_rows(c, slot, 1))]
             for c in self._stacked]
         self._swap_blocks[slot] = (self.pages.blocks_of("model", slot),
@@ -471,10 +494,11 @@ class PagedKVArena(KVArena):
         rows = self._swapped.pop(slot)
         del self._swap_blocks[slot]
         for full, host in zip(self._stacked, rows):
-            dev = next(iter(full[0].values())).pages.device
             tf.update_cache_rows(
-                full, [{k: v.to(dev) for k, v in layer.items()}
-                       for layer in host], slot)
+                full, [None if layer is None else
+                       {k: v.to(_device(full[i][k])) for k, v in
+                        layer.items()} for i, layer in enumerate(host)],
+                slot)
         self.touch(slot)
         return True
 

@@ -100,12 +100,18 @@ def test_registry_matches_jax():
 
 
 def test_unsupported_families_name_the_next_slice():
-    """The recurrent families are refused, naming their slice (ROADMAP
-    item 14c); every attention family and the modality families run."""
+    """Every family of the registry runs; the boundary now lies inside
+    the recurrent families: their tree verify names chain-mode, and their
+    int8 form is refused (dense attention only)."""
     for arch in ("mamba2-130m", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="next slice.*14c"):
-            tf.Transformer(reg.get_config(arch, smoke=True), "meta")
-    for arch in (*FAMILIES, "whisper-base", "internvl2-26b"):
+        cfg = reg.get_config(arch, smoke=True)
+        tf.Transformer(cfg, "meta")
+        with pytest.raises(NotImplementedError, match="chain-mode"):
+            tf.check_tree_supported(cfg)
+        with pytest.raises(NotImplementedError, match="dense attention"):
+            tf.check_supported(dataclasses.replace(cfg, quant="int8"))
+    for arch in (*FAMILIES, "whisper-base", "internvl2-26b",
+                 "mamba2-130m", "recurrentgemma-9b"):
         tf.check_supported(reg.get_config(arch))
 
 

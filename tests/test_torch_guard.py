@@ -30,7 +30,7 @@ db = ["models.paging", "kernels.paged", "core.dynbatch",
       "core.baselines", "core.chain", "core.sim", "data.pipeline",
       "optim.adamw", "launch.steps", "launch.train", "launch.pipeline",
       "launch.sharded_check", "counting", "models.moe", "models.encdec",
-      "models.frontends",
+      "models.frontends", "models.ssm", "models.rglru",
       "configs.deepseek_v2_236b", "configs.gemma_7b",
       "configs.moonshot_v1_16b_a3b", "configs.qwen1_5_32b",
       "configs.qwen2_5_32b", "configs.qwen2_moe_a2_7b",

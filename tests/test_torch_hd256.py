@@ -2,7 +2,9 @@
 the JAX package's Pallas kernels in interpret mode, on the same numpy
 inputs: flash (a tree-verify past half, decode, a causal prompt), the
 tree kernel, and both paged kernels, in fp32 and int8, plus the merged
-tree-verify entry point.  Small shapes (a few keys and heads at the full
+tree-verify entry point, and RecurrentGemma's windowed local attention
+(16 query heads over one KV head, window 8 and 2048, query tiles that
+straddle the window edge) with the kernel plan's cover of it.  Small shapes (a few keys and heads at the full
 head width).  Tolerance: 1e-5 (fp32 sums in another order).  The CUDA
 instances at head_dim 256 are held to these plain versions on the card
 (``test_torch_hd256_cuda.py``, ``test_torch_tree_cuda.py``).
@@ -149,3 +151,77 @@ def test_tree_attention_entry_point_matches_ref_hd256():
     got = ops.tree_attention(*map(torch.as_tensor,
                                   (q, kp, vp, kt, vt, mask, plen)))
     _close(got, want)
+
+
+# RecurrentGemma's local attention: 16 query heads over one KV head at
+# head_dim 256, within a window (8 at its smoke size, 2048 published);
+# queries are (prompt-like) causal runs whose tiles straddle the window
+# edge, or decode steps at kv_len - 1
+WINDOW_CASES = [
+    # n, length, kv_len, first query position (None: decode), window
+    (1, 48, (40, 17), None, 8),
+    (12, 48, (48, 30), (36, 18), 8),
+    (1, 2112, (2100, 2112), None, 2048),
+    (64, 2112, (2112, 2100), (2048, 2036), 2048),
+]
+
+
+def _window_inputs(rng, n, length, kv_len, q0):
+    b, h, kvh = 2, 16, 1
+    q = rng.normal(size=(b, h, n, HD)).astype(np.float32)
+    kv = _kv(rng, b, kvh, length, HD, False)
+    kvl = np.asarray(kv_len, np.int32)
+    qpos = (kvl[:, None] - 1 if q0 is None
+            else np.asarray(q0)[:, None] + np.arange(n))
+    return q, kv, kvl, np.ascontiguousarray(qpos, np.int32)
+
+
+@pytest.mark.parametrize("n,length,kv_len,q0,window", WINDOW_CASES)
+def test_flash_window_mqa_plain_matches_pallas_hd256(n, length, kv_len, q0,
+                                                     window):
+    """The plain version's window (keys with kpos > qpos - window, the
+    reference's rule) against the Pallas kernel's, MQA 16:1; every case
+    masks keys below the window.  o and m within 1e-5 absolute, l (a sum
+    of up to 2048 exponentials, about 100 here) within 1e-5 relative."""
+    rng = np.random.default_rng(n + length + window)
+    q, kv, kvl, qpos = _window_inputs(rng, n, length, kv_len, q0)
+    causal = q0 is not None
+    assert (qpos - window + 1 > 0).any()       # the window cuts keys
+    jo, jm, jl = jflash(jnp.asarray(q), jnp.asarray(kv["k"]),
+                        jnp.asarray(kv["v"]), jnp.asarray(kvl),
+                        jnp.asarray(qpos), causal=causal, window=window,
+                        block_k=512 if length > 512 else 16)
+    tkv = _t(kv)
+    o, m, l = flash.flash_attention_lse(
+        torch.as_tensor(q), tkv["k"], tkv["v"], torch.as_tensor(kvl),
+        torch.as_tensor(qpos), causal=causal, window=window)
+    _close(o, jo)
+    _close(m, np.asarray(jm)[..., 0])
+    np.testing.assert_allclose(np.asarray(l), np.asarray(jl)[..., 0],
+                               rtol=1e-5, atol=0)
+    if q0 is None:      # decode: the entry point the local layers call
+        dec = ops.decode_attention(torch.as_tensor(q), tkv["k"], tkv["v"],
+                                   torch.as_tensor(kvl), window=window)
+        _close(dec, jo)
+
+
+@pytest.mark.parametrize("n,length,kv_len,q0,window", WINDOW_CASES)
+def test_flash_window_chunk_plan_covers_mqa_tiles(n, length, kv_len, q0,
+                                                  window):
+    """The kernel's plan at 16:1 (4 queries of 16 heads a CTA): each query
+    tile's chunks cover every key any of its queries attends, the window's
+    first key included when a tile straddles the window edge."""
+    rng = np.random.default_rng(0)
+    _, _, kvl, qpos = _window_inputs(rng, n, length, kv_len, q0)
+    causal = q0 is not None
+    valid = flash.valid_mask(2, n, length, torch.as_tensor(kvl),
+                             torch.as_tensor(qpos), causal, window, "cpu")
+    c, bq = flash.chunk_keys(HD), flash.queries_per_cta(16)
+    assert bq == 4
+    plan = flash.chunk_plan(HD, length, kvl, qpos, n, 16, causal=causal,
+                            window=window)
+    for b, tiles in enumerate(plan):
+        for t, (lo, hi) in enumerate(tiles):
+            keys = torch.nonzero(valid[b, t * bq:(t + 1) * bq].any(0))[:, 0]
+            assert keys.numel()
+            assert lo * c <= int(keys.min()) and int(keys.max()) < hi * c

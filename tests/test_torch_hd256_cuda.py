@@ -1,7 +1,7 @@
 """The attention kernels' head_dim 256 instances (Gemma) on a card: the
 flash kernel (dense and paged, fp32 and int8) at the main path's shapes
-(the tree-verify past half, decode, causal prefill, a long cache) against
-its plain version, each row of a batch against a B = 1 call, and the
+(the tree-verify past half, decode, causal prefill, a long cache, and
+RecurrentGemma's windowed MQA local attention) against its plain version, each row of a batch against a B = 1 call, and the
 paged kernels bit for bit against the dense kernels on the gathered view.
 The tree kernel's head_dim 256 cases are in ``test_torch_tree_cuda.py``.
 Every test here is marked ``cuda_kernel`` and skips on a host without a
@@ -159,3 +159,44 @@ def test_paged_tree_hd256_equals_dense(cuda, int8):
                                           **_scales(dense))
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+# RecurrentGemma's local attention (16 query heads over one KV head,
+# window 8 at its smoke size and 2048 published): decode at kv_len - 1,
+# and causal query runs whose 4-query tiles straddle the window edge
+WINDOW_CASES = [
+    # n, length, kv_len, first query position (None: decode), window
+    (1, 48, (40, 17), None, 8),
+    (12, 48, (48, 30), (36, 18), 8),
+    (1, 4096, (3000, 2112), None, 2048),
+    (64, 2112, (2112, 2100), (2048, 2036), 2048),
+]
+
+
+@pytest.mark.cuda_kernel
+@pytest.mark.parametrize("n,length,kv_len,q0,window", WINDOW_CASES)
+def test_flash_hd256_window_mqa_matches_plain_and_rows_alone(
+        cuda, n, length, kv_len, q0, window):
+    b, h, kvh = 2, 16, 1
+    gen = torch.Generator().manual_seed(n + length + window)
+    q = torch.randn(b, h, n, HD, generator=gen).to(cuda)
+    kv = _kv(cuda, b, length, kvh, False, gen)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    causal = q0 is not None
+    qpos = ((kvl.long() - 1)[:, None] if q0 is None else
+            torch.tensor(q0, device=cuda)[:, None]
+            + torch.arange(n, device=cuda))
+    qpos = qpos.to(torch.int32).contiguous()
+    got = flash.flash_attention_lse(q, kv["k"], kv["v"], kvl, qpos,
+                                    causal=causal, window=window)
+    want = flash.flash_attention_lse_plain(q, kv["k"], kv["v"], kvl, qpos,
+                                           scale=HD ** -0.5, causal=causal,
+                                           window=window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    for r in range(b):
+        alone = flash.flash_attention_lse(
+            q[r:r + 1], kv["k"][r:r + 1], kv["v"][r:r + 1], kvl[r:r + 1],
+            qpos[r:r + 1], causal=causal, window=window)
+        for g, a in zip(got, alone):
+            assert torch.equal(g[r], a[0])
