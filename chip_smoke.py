@@ -2073,17 +2073,24 @@ def read_ring_launches(ex, *bundles, paged=False):
     tree mode launches the dense flash and tree kernels once, and each
     layer of its chunk prefill the dense flash kernel once, in their int8
     mode for an int8 target (the ring's caches are dense, or densified
-    around it); an int8 target's projections launch dequant_matmul 7
-    times a layer."""
+    around it), and also in their head_dim 256 instance (counted in the
+    ``hd256`` rows too) for a target whose head_dim is over 128 (Gemma);
+    a cross sub-layer (Whisper) adds one flash launch a layer; an int8
+    target's projections launch dequant_matmul 7 times a layer."""
     launches, expect = read_launches(*bundles, paged=paged)
     if ex is None:
         return launches, expect
     layers = ex.calls["stage_layers"]
     chunk_layers = ex.calls["prefill_layers"]
-    int8 = ex.target.cfg.quant == "int8"
-    mode = " int8" if int8 else ""
-    expect["flash_attention_lse" + mode] += layers + chunk_layers
-    expect["tree_block_attention" + mode] += layers
+    cfg = ex.target.cfg
+    int8 = cfg.quant == "int8"
+    modes = [" int8" if int8 else ""]
+    if cfg.resolved_head_dim > 128:
+        modes.append(modes[0] + HD256)
+    cross = layers if ex.target.cross_kv is not None else 0
+    for mode in modes:
+        expect["flash_attention_lse" + mode] += layers + chunk_layers + cross
+        expect["tree_block_attention" + mode] += layers
     if int8:
         expect["dequant_matmul"] += PROJECTIONS * (layers + chunk_layers)
     return launches, expect
@@ -2176,31 +2183,35 @@ def _actors(ex):
             "pushed": c["pushed"], "consumed": c["consumed"]}
 
 
-def _executor_ok(kind, ex, engine, target, draft, n_requests):
-    """The schedule's own checks: one flush per timestep with entries;
-    one tick per timestep and no separate prefill (overlapped); one entry
-    message per timestep with entries, one stage step per entry per
-    stage, a drained pipe, one separate prefill per admission and no
-    actor thread left (async)."""
-    st = engine.db_stats
+def _executor_ok(kind, ex, st, target, draft, n_requests):
+    """The schedule's own checks over the run's ``DBStats`` ``st``: one
+    flush per timestep with entries; one tick per timestep and every
+    admission through the prefill lane, no separate prefill (overlapped),
+    or with the lane off (a prefix or an encoder output) none in the ring
+    and one separate prefill per admission; one entry message per
+    timestep with entries, one stage step per entry per stage, a drained
+    pipe, one separate prefill per admission and no actor thread left
+    (async)."""
     if kind == "flush":
         return ex.calls["pipeline_verify"] == sum(
             st.verify_dispatches) == ex.calls["verify_rows"]
     ticks = (ex.calls["pipeline_tick"] == st.timesteps
              and st.tick_dispatches == [1] * st.timesteps)
+    per_bundle = n_requests * (2 if target is draft else 1)
+    apart = (st.separate_prefill_dispatches == n_requests
+             and all(b.calls["prefill"] == per_bundle
+                     for b in (target, draft)))
     if kind == "overlap":
-        return (ticks and ex.calls["drain_tick"] == 0
-                and st.separate_prefill_dispatches == 0
+        lane = (st.separate_prefill_dispatches == 0
                 and not target.calls["prefill"]
                 and not draft.calls["prefill"])
-    per_bundle = n_requests * (2 if target is draft else 1)
+        if not ex.prefill_cap:
+            lane = apart and ex.calls["prefill_in_ring"] == 0
+        return ticks and ex.calls["drain_tick"] == 0 and lane
     return (ticks and ex.calls["entry_msgs"] == sum(st.verify_dispatches)
             and ex.calls["stage_steps"] == ex.calls["entry_msgs"]
             * ex.n_stages
-            and ex._consumed == ex._pushed
-            and st.separate_prefill_dispatches == n_requests
-            and all(b.calls["prefill"] == per_bundle
-                    for b in (target, draft))
+            and ex._consumed == ex._pushed and apart
             and not _async_threads())
 
 
@@ -2243,7 +2254,7 @@ def _ring_phase(phase, kind, state, *, arenas=(False, True), quant=False,
             pcfg=pcfg)
         st = engine.db_stats
         good = (launches_ok(launches, expect, paths[paged])
-                and _executor_ok(kind, ex, engine, target, draft,
+                and _executor_ok(kind, ex, engine.db_stats, target, draft,
                                  len(requests)))
         if kind == "flush" and quant:
             good = good and st.timesteps == lref["timesteps"] and \
@@ -2370,7 +2381,7 @@ def _self_draft_ring(phase, kind, paged, state):
     engine, res, ex, serve_s, _, launches, expect = _ring_run(
         kind, target, target, requests, paged=paged, slots=2, pcfg=pcfg)
     calls = dict(target.calls)    # before the reference runs below
-    schedule_ok = _executor_ok(kind, ex, engine, target, target,
+    schedule_ok = _executor_ok(kind, ex, engine.db_stats, target, target,
                                len(requests))
     st = engine.db_stats
     per, ok = {}, True
@@ -3144,13 +3155,32 @@ FAMILY_ARCHS = (("qwen2.5-32b", 8), ("qwen1.5-32b", 8), ("gemma-7b", 28),
 # 6 encoder layers over seeded [1, 1500, 512] frames)
 FAMILY_MODAL_ARCHS = (("internvl2-26b", 8), ("whisper-base", 6))
 FAMILY_PROMPT_LENS = (64, 128, 96)     # PipeDec takes the first two
-# 16 new tokens a family run (8 PipeDec timesteps a token with the random
-# draft): the whole script must stay well inside its 1200 s limit
-FAMILY_NEW_TOKENS = 16
+# 8 new tokens a family run (8 PipeDec timesteps a token with the random
+# draft): the whole script must stay well inside its 1200 s limit (16
+# until the ring runs of family-db took it past 1000 s, PERF.md section 4)
+FAMILY_NEW_TOKENS = 8
 FAMILY_DB_ARCHS = ("gemma-7b", "moonshot-v1-16b-a3b", "deepseek-v2-236b",
-                   "internvl2-26b", "whisper-base")
+                   "qwen2-moe-a2.7b", "internvl2-26b", "whisper-base")
 FAMILY_DB_ARRIVALS = (0, 0, 3)
 FAMILY_DB_NEW_TOKENS = 8
+# the families on the 8-stage ring, one mechanism each: GeGLU at hd 256
+# (4 layers a stage, the last stage all padding), QKV bias with MoE, the
+# 256-row prefix with the prefill lane off, the cross sub-layer (2 stages
+# all padding); each run is held to the family's local family-db run.
+# The paged overlapped run is Gemma's alone and the async runs are
+# InternVL2's and Whisper's alone: with all four runs a family the whole
+# script took 1004 s of its 1200 s limit (PERF.md section 4)
+FAMILY_RING_RUNS = {
+    "gemma-7b": (("flush", False), ("overlap", False), ("overlap", True)),
+    "qwen2-moe-a2.7b": (("flush", False), ("overlap", False)),
+    "internvl2-26b": (("flush", False), ("overlap", False),
+                      ("async", False)),
+    "whisper-base": (("flush", False), ("overlap", False),
+                     ("async", False))}
+FAMILY_RING_ARCHS = tuple(FAMILY_RING_RUNS)
+# the timesteps of a family-db dense run traced by torch.profiler (start,
+# count): past the third arrival and the overlapped ring's joins
+DB_WINDOW = (12, 5)
 FAMILY_INT8_ARCHS = ("gemma-7b", "qwen2.5-32b")
 FAMILY_INT8_NEW_TOKENS = 8
 FAMILY_MAX_LEN = 256      # cache rows past a vision prefix
@@ -3558,23 +3588,245 @@ def _full_layers(arch):
     return get_config(arch).num_layers
 
 
+def _device_window(steps, n):
+    """Run the next ``n`` timesteps of the generator ``steps`` under
+    torch.profiler (CUDA activity), the card synchronized at both ends.
+    Returns {"steps", "wall_ms" (per timestep, profiled), "busy_ms" (the
+    union of the card's kernel and copy intervals per timestep, every
+    stream together), "kernel_ms" (their sum), "device_ops" (per
+    timestep), "idle_share" (1 - busy / profiled wall)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    end, k = object(), 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while k < n and next(steps, end) is not end:
+            k += 1
+        wall_ms = 1e3 * _sync_s(t0)
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    busy, last = 0, None
+    for a, b in spans:
+        if last is not None and a < last:
+            busy += max(b - last, 0)
+            last = max(last, b)
+        else:
+            busy += b - a
+            last = b
+    per = max(k, 1)
+    return {"steps": k, "wall_ms": wall_ms / per,
+            "busy_ms": busy / 1e3 / per,
+            "kernel_ms": sum(b - a for a, b in spans) / 1e3 / per,
+            "device_ops": len(spans) / per,
+            "idle_share": 1.0 - busy / 1e3 / wall_ms if wall_ms else None}
+
+
+def _family_db_drive(kind, target, draft, requests, *, paged, pcfg,
+                     window=None):
+    """One SpecPipe-DB run of the family-db requests (DB_SLOTS slots) on
+    the local executor (``kind`` "local") or the 8-stage ring's flush,
+    overlapped or async executor, driven timestep by timestep through
+    ``SpecPipeDBEngine.steps`` (what ``ServingEngine.run`` runs); launch
+    counts zeroed just before and read just after, exit logits recorded.
+    ``window`` (start, count): those timesteps run under the profiler
+    (``_device_window``) and the others are timed on the host clock, so
+    ``ms_per_timestep`` leaves the traced ones out.  Returns a dict."""
+    import torch
+    from repro_torch.serving import (AsyncPipelineExecutor,
+                                     LocalFusedExecutor,
+                                     OverlappedShardedExecutor, Request,
+                                     ShardedPipelineExecutor,
+                                     SpecPipeDBEngine)
+    kw = dict(slots=DB_SLOTS, max_len=DB_MAX_LEN,
+              tree_capacity=pcfg.tree_buffer_capacity,
+              capacity=pcfg.capacity)
+    if kind == "local":
+        ex = LocalFusedExecutor(target, draft, paged=paged, page=PAGE, **kw)
+    elif kind == "async":
+        ex = AsyncPipelineExecutor(target, draft, n_stages=pcfg.n_stages,
+                                   timeout_s=ASYNC_TIMEOUT_S, **kw)
+    else:
+        cls = (OverlappedShardedExecutor if kind == "overlap"
+               else ShardedPipelineExecutor)
+        ex = cls(target, draft, n_stages=pcfg.n_stages, paged=paged,
+                 page=PAGE, **kw)
+    db = SpecPipeDBEngine(target, draft, pcfg, max_len=DB_MAX_LEN,
+                          max_slots=DB_SLOTS, executor=ex)
+    for uid, prompt, new, arrival in requests:
+        db.submit(Request(uid, prompt, new, arrival_t=arrival))
+    start, count = window or (-1, 0)
+    zero_launches(target, draft)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed_s, timed, dev, end = 0.0, 0, None, object()
+    t_run = time.perf_counter()
+    try:
+        with exit_logits() as seen:
+            steps = db.steps()
+            t0 = time.perf_counter()
+            while True:
+                if timed == start and dev is None:
+                    timed_s += _sync_s(t0)
+                    dev = _device_window(steps, count)
+                    t0 = time.perf_counter()
+                    if dev["steps"] < count:
+                        break
+                    continue
+                if next(steps, end) is end:
+                    break
+                timed += 1
+            timed_s += _sync_s(t0)
+    finally:
+        if kind == "async":
+            ex.shutdown()
+    run_s = time.perf_counter() - t_run
+    results = db.results
+    for r in results.values():
+        r.exit_logits = seen.get(id(r.stats), [])
+    launches, expect = read_ring_launches(
+        None if kind == "local" else ex, target, draft, paged=paged)
+    st = db.stats
+    return {"kind": kind, "paged": paged, "ex": ex, "stats": st,
+            "results": results, "run_s": run_s,
+            "ms_per_timestep": 1e3 * timed_s / max(timed, 1),
+            "timed_timesteps": timed, "device": dev,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "expected_launches": expect,
+            "launches_per_timestep": sum(launches.values())
+            / max(st.timesteps, 1)}
+
+
+def _ring_vs(run, ref, target, requests, *, bits):
+    """Per request of ``run`` against the run ``ref``: tokens (the
+    near-tie rule), GenStats, and the largest exit-logit difference;
+    ``bits`` asks for equal tokens, stats and logits.  Returns (ok,
+    rows)."""
+    ok, rows = True, []
+    for uid, prompt, _, _ in requests:
+        r, lr = run["results"][uid], ref["results"][uid]
+        same, tie = _lossless(target, prompt, r.tokens, lr.tokens)
+        as_ref = bool((r.tokens == lr.tokens).all()) and all(
+            getattr(r.stats, k) == getattr(lr.stats, k) for k in STATS)
+        diff = _logit_diff(r.exit_logits, lr.exit_logits)
+        if bits:
+            good = as_ref and diff == 0.0
+        else:
+            good = same and (as_ref or tie is not None) and (
+                tie is not None or diff is not None
+                and diff <= TOL_ASYNC_LOGITS)
+        ok = ok and good
+        rows.append({"uid": uid, "ok": good, "equals": as_ref,
+                     "near_tie": tie, "max_logit_diff": diff})
+    return ok, rows
+
+
+def _family_ring(state, arch, target, draft, requests, want, local, pcfg):
+    """The family's requests on the 8-stage ring (its FAMILY_RING_RUNS): the
+    flush equal to the local dense run bit for bit (tokens, GenStats,
+    exit logits); the overlapped and async runs equal to it in tokens but
+    at a near-tie, logits within TOL_ASYNC_LOGITS; the paged overlapped
+    run equal to the dense one bit for bit; every run lossless against
+    autoregressive decoding, launches as the calls and stage applications
+    imply (``read_ring_launches``), the schedule's own checks
+    (``_executor_ok``; a prefix or an encoder output turns the overlapped
+    ring's lane off).  Prints each run's wall ms per timestep beside the
+    local run's, the card's busy ms and idle share in the traced window,
+    launches per timestep, stage applications and kills, peak memory and
+    seconds.  Returns whether every run passed."""
+    cfg = target.cfg
+    ok, runs = True, {}
+    for kind, paged in FAMILY_RING_RUNS[arch]:
+        run = _family_db_drive(kind, target, draft, requests, paged=paged,
+                               pcfg=pcfg, window=None if paged else DB_WINDOW)
+        runs[kind, paged] = run
+        ex, st = run["ex"], run["stats"]
+        path = _family_path(cfg)
+        if paged:
+            path += ("paged_flash_attention_lse",
+                     "paged_tree_block_attention")
+        good = (launches_ok(run["launches"], run["expected_launches"], path)
+                and _executor_ok(kind, ex, st, target, draft,
+                                 len(requests)))
+        for uid, p, _, _ in requests:
+            same, _tie = _lossless(target, p, run["results"][uid].tokens,
+                                   want[uid])
+            good = good and same
+        vs_local, rows = _ring_vs(run, local, target, requests,
+                                  bits=kind == "flush")
+        good = good and vs_local
+        vs_dense = None
+        if paged:
+            vs_dense, _ = _ring_vs(run, runs[kind, False], target,
+                                   requests, bits=True)
+            good = good and vs_dense
+        ok = ok and good
+        for k in run["launches"]:
+            if k.endswith(HD256) and run["launches"][k]:
+                state["launches"][k] = (state["launches"].get(k, 0)
+                                        + run["launches"][k])
+        n = max(st.timesteps, 1)
+        emit({"phase": "family-db", "ring": kind, "ok": good,
+              "executor": "async" if kind == "async" else "sharded",
+              "overlap": kind == "overlap",
+              "arena": "paged" if paged else "dense",
+              "target": cfg.name, "draft": draft.cfg.name,
+              "reduced": {"target_layers": f"{cfg.num_layers} of "
+                          f"{_full_layers(arch)}"},
+              "n_stages": pcfg.n_stages,
+              "layers_per_stage": -(-cfg.num_layers // pcfg.n_stages),
+              "slots": DB_SLOTS,
+              "prefill_cap": getattr(ex, "prefill_cap", None),
+              "modality": ("prefix" if target.prefix_embeds is not None
+                           else "encoder output"
+                           if target.enc_out is not None else None),
+              "timesteps": st.timesteps,
+              "local_timesteps": local["stats"].timesteps,
+              "ms_per_timestep": run["ms_per_timestep"],
+              "local_ms_per_timestep": local["ms_per_timestep"],
+              "device": run["device"], "local_device": local["device"],
+              "launches_per_timestep": run["launches_per_timestep"],
+              "local_launches_per_timestep":
+                  local["launches_per_timestep"],
+              "stage_applications": ex.calls["stage_apply"]
+              or ex.calls["stage_steps"],
+              "stage_layers": ex.calls["stage_layers"],
+              "stage_applications_per_timestep":
+                  (ex.calls["stage_apply"] or ex.calls["stage_steps"]) / n,
+              "kills": ex.calls["kill"],
+              "actors": _actors(ex) if kind == "async" else None,
+              "paged_equals_dense": vs_dense,
+              "vs_local": rows, "peak_mem_gb": run["peak_gb"],
+              "run_s": run["run_s"], "executor_calls": dict(ex.calls),
+              "launches": run["launches"],
+              "expected_launches": run["expected_launches"]})
+        run.pop("ex")
+    return ok
+
+
 def phase_family_db(state):
     """SpecPipe-DB (3 slots, arrivals 0, 0, 3, the local executor) for
-    Gemma-7b, Moonlight, DeepSeek-V2, InternVL2 (its vision prefix serving
-    every slot) and Whisper (its encoder output cross-attended by every
-    row of a bucket) at their family-phase depths, dense and paged
-    arenas: paged equals dense bit for bit (tokens, GenStats), tokens
-    equal autoregressive decoding, launches as the calls imply.  MoE runs
-    at dropless capacity here (a batched verify routes up to 24 tokens
-    together, which the published capacity may drop, in the reference
-    too); a further dense run at the published capacity factor reports
-    whether its tokens still equal autoregressive decoding at that
-    factor."""
+    Gemma-7b, Moonlight, DeepSeek-V2, Qwen-MoE, InternVL2 (its vision
+    prefix serving every slot) and Whisper (its encoder output
+    cross-attended by every row of a bucket) at their family-phase depths,
+    dense and paged arenas: paged equals dense bit for bit (tokens,
+    GenStats), tokens equal autoregressive decoding, launches as the calls
+    imply.  MoE runs at dropless capacity here (a batched verify routes up
+    to 24 tokens together, which the published capacity may drop, in the
+    reference too); for Moonlight and DeepSeek a further dense run at the
+    published capacity factor reports whether its tokens still equal
+    autoregressive decoding at that factor (Qwen-MoE's time goes to its
+    ring runs).  Then FAMILY_RING_ARCHS on the 8-stage ring
+    (``_family_ring``), held to the family's local dense run, whose
+    DB_WINDOW timesteps are traced for the card's busy time."""
     import torch
     from repro_torch.core.pipedec import PipeDecConfig
     pcfg = PipeDecConfig(n_stages=8, width=8, branch=4)
     ok = True
     for arch in FAMILY_DB_ARCHS:
+        t_arch = time.perf_counter()
         _free()
         torch.cuda.reset_peak_memory_stats()
         target, draft = _family_bundles(arch, dropless=True)
@@ -3583,11 +3835,14 @@ def phase_family_db(state):
         want, _ = _autoregressive(target, prompts, FAMILY_DB_NEW_TOKENS)
         requests = [(uid, p, FAMILY_DB_NEW_TOKENS, FAMILY_DB_ARRIVALS[uid])
                     for uid, p in enumerate(prompts)]
+        ring = arch in FAMILY_RING_ARCHS
         runs = {}
         for paged in (False, True):
-            engine, res, ex, serve_s, peak_gb, launches, expect = _db_run(
-                target, draft, requests, paged=paged, slots=DB_SLOTS,
-                pcfg=pcfg)
+            run = _family_db_drive(
+                "local", target, draft, requests, paged=paged, pcfg=pcfg,
+                window=DB_WINDOW if ring and not paged else None)
+            res, ex = run["results"], run["ex"]
+            launches, expect = run["launches"], run["expected_launches"]
             path = _family_path(cfg)
             if paged:
                 path = ("flash_attention_lse", "paged_flash_attention_lse",
@@ -3605,17 +3860,18 @@ def phase_family_db(state):
                 rows.append({"uid": uid, "prompt_len": len(p),
                              "arrival_t": arrival, "lossless": same,
                              "near_tie": tie, **_gen_stats(res[uid].stats)})
-            runs[paged] = res
+            runs[paged] = run
             same_run = None
             if paged:
                 same_run = all(
-                    (runs[True][u].tokens == runs[False][u].tokens).all()
-                    and all(getattr(runs[True][u].stats, k)
-                            == getattr(runs[False][u].stats, k)
-                            for k in STATS) for u in runs[False])
+                    (runs[True]["results"][u].tokens
+                     == runs[False]["results"][u].tokens).all()
+                    and all(getattr(runs[True]["results"][u].stats, k)
+                            == getattr(runs[False]["results"][u].stats, k)
+                            for k in STATS) for u in res)
                 good = good and same_run
             ok = ok and good
-            st = engine.db_stats
+            st = run["stats"]
             emit({"phase": "family-db", "ok": good, "target": cfg.name,
                   "draft": draft.cfg.name,
                   "reduced": {"target_layers": f"{cfg.num_layers} of "
@@ -3629,12 +3885,16 @@ def phase_family_db(state):
                   "slots": DB_SLOTS, "paged_equals_dense": same_run,
                   "timesteps": st.timesteps,
                   "tokens_per_timestep": st.tokens_per_timestep,
-                  "ms_per_timestep": 1e3 * serve_s / max(st.timesteps, 1),
-                  "peak_mem_gb": peak_gb, "executor_calls": dict(ex.calls),
+                  "ms_per_timestep": run["ms_per_timestep"],
+                  "device": run["device"],
+                  "launches_per_timestep": run["launches_per_timestep"],
+                  "peak_mem_gb": run["peak_gb"],
+                  "executor_calls": dict(ex.calls),
                   "launches": launches, "expected_launches": expect,
                   "requests": rows})
-            del engine, ex
-        if cfg.moe is not None:
+            run.pop("ex")
+            del ex
+        if cfg.moe is not None and not ring:
             # the published capacity factor: a report, not a check
             pub_cfg, _ = _family_cfgs(arch)
             pub = _share_weights(target, pub_cfg)
@@ -3649,7 +3909,12 @@ def phase_family_db(state):
                       uid: bool((res[uid].tokens == pub_want[uid]).all())
                       for uid in res}})
             del pub
-        del target, draft
+        if ring:
+            ok = _family_ring(state, arch, target, draft, requests, want,
+                              runs[False], pcfg) and ok
+        emit({"phase": "family-db", "target": cfg.name,
+              "arch_s": time.perf_counter() - t_arch})
+        del target, draft, runs
     _free()
     if not ok:
         raise AssertionError("family-db failed: see its lines")

@@ -28,7 +28,15 @@ What rides with a layer is frozen at its entry: positions, ancestor mask,
 tree write offset, committed length, validity and the slot's tree
 ``version``.  The activations and the positions, mask and committed length
 that the attention reads on the card are tensors made once, at entry;
-the rest is host arrays, so no stage ever reads a value back from the card.
+the rest is host arrays (the committed length too, as ``lens``, which
+marks a bucket's empty rows), so no stage ever reads a value back from
+the card.
+
+The ring serves what the reference's ring serves (``check_ring_supported``):
+uniform attention stacks, with or without QKV bias, any MLP variant, MoE
+with no dense layer before the stack, a vision prefix (it enters through
+admission prefill only) and an encoder-decoder, whose per-layer cross K/V
+(one encoder output for every slot) every stage's layers attend.
 
 The overlapped schedule adds three mechanisms, as in the reference:
   * the gated ctrl channel: the exit decision of timestep t (commit length
@@ -37,7 +45,8 @@ The overlapped schedule adds three mechanisms, as in the reference:
     first post-prune one; ``c_active`` rides beside it, and a stage whose
     message is inactive skips it;
   * ``kill [B]`` invalidates every in-flight layer of a slot (miss,
-    retire): killed rows stop writing their tree rows and exit invalid,
+    retire): killed rows stop writing their tree rows (under MoE they
+    are still computed, ``computed_rows``) and exit invalid,
     and ``version`` proves that a resolved exit belongs to the slot's
     current tree;
   * the prefill lane: a joining request's prompt chunk (``p_act [B, Pcap,
@@ -50,13 +59,17 @@ Every sub-step is skipped on the host when it has nothing to do (no valid
 row, an inactive message, an empty lane), which is the identity by
 construction; so kernel launches count only real stage applications.
 ``calls``, when given, counts them: ``stage_apply`` and ``stage_layers``
-(layers run in tree mode: one flash and one tree launch each),
+(layers run in tree mode: one flash and one tree launch each, and one
+more flash launch for a cross sub-layer),
 ``stage_ctrl``, ``stage_prefill`` and ``prefill_layers``.
 
 JAX's ``stage_apply`` computes every row and keeps old or new per row; the
 port's caches are written in place, so the tree-row writes of an invalid
-row (killed, padded or empty) are masked out of the write itself
+row (killed or padded) are masked out of the write itself
 (``attention.cache_write_rows(on=)``), and its activations pass through.
+A tick computes a bucket's empty rows beside the valid ones
+(``computed_rows``), as the local fused verify does, while an entry has a
+valid row; under MoE it computes the rows killed in flight too.
 """
 from __future__ import annotations
 
@@ -86,45 +99,27 @@ class PipelineConfig:
 
 
 def check_ring_supported(cfg: ModelConfig) -> None:
-    """Raise unless the ring serves ``cfg``: dense GQA decoders with a
-    SwiGLU MLP and no QKV bias (fp32 or int8), what the ring is tested on.
-    MoE, MLA, QKV bias, other MLPs and an encoder run in the local
-    executors; on the ring and the async executor they are ROADMAP item
-    17.  A VLM config passes, served text-only (``check_ring_bundles``
-    refuses its prefix).  Recurrent configs are refused up front: the
-    ring runs SpecPipe-DB's tree verify, which a recurrent sub-layer does
-    not have (they speculate in chain mode)."""
+    """Raise for a configuration the reference's ring refuses, and for
+    nothing else: a stack with a layer kind other than attention (the
+    recurrent families: ``make_stage_fns`` asserts ``kinds == ("attn",)``;
+    they speculate in chain mode), and dense layers before the uniform
+    stack (MoE ``first_dense > 0``, Moonlight and DeepSeek-V2:
+    ``stage_layout`` asserts a uniform layer stack).  Dense, QKV-bias,
+    GeGLU and GELU MLPs, MoE with ``first_dense`` 0, a vision prefix and
+    an encoder with cross-attention pass, in fp32 or int8."""
     tf.check_supported(cfg)
-    if tf.is_recurrent(cfg):
+    kinds = sorted(set(tf.layer_kinds(cfg)) - {"attn"})
+    if kinds:
         raise NotImplementedError(
-            f"{cfg.name}: the stage ring and the async executor run "
-            "SpecPipe-DB's tree verify, which recurrent (ssm/rglru) "
-            f"sub-layers do not have; {tf.CHAIN_MODE} (ROADMAP item 17 "
-            "keeps them off the ring)")
-    bad = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("qkv_bias", cfg.qkv_bias), ("encoder", cfg.encoder is not None),
-        (f"mlp_variant={cfg.mlp_variant}", cfg.mlp_variant != "swiglu"))
-        if on]
-    if bad:
+            f"{cfg.name}: pipeline stages support attention stacks, not "
+            f"{'/'.join(kinds)} sub-layers (the ring runs SpecPipe-DB's "
+            f"tree verify); {tf.CHAIN_MODE}")
+    first = cfg.moe.first_dense if cfg.moe is not None else 0
+    if first:
         raise NotImplementedError(
-            f"{cfg.name}: the stage ring and the async executor serve "
-            f"dense SwiGLU decoders only, not {', '.join(bad)} (ROADMAP "
-            "item 17: the ring with the new families)")
-
-
-def check_ring_bundles(target, draft) -> None:
-    """Raise for bundles that carry a vision prefix or an encoder output:
-    the ring's prefill lane embeds prompt tokens only, and the reference
-    turns its lane off for such bundles and prefills them apart, which the
-    port's fixed lane cannot yet do (ROADMAP item 17)."""
-    for name, b in (("target", target), ("draft", draft)):
-        if b.prefix_embeds is not None or b.enc_out is not None:
-            raise NotImplementedError(
-                f"the {name} bundle carries a vision prefix or an encoder "
-                "output: the stage ring and the async executor serve "
-                "text-only bundles (ROADMAP item 17: the ring with the new "
-                "families)")
+            f"{cfg.name}: the pipeline deployment expects a uniform layer "
+            f"stack, and moe.first_dense={first} puts dense layers before "
+            "the MoE stack")
 
 
 def stage_layout(cfg: ModelConfig, n_stages: int) -> Tuple[int, int]:
@@ -183,6 +178,8 @@ class RingEntry:
     positions: Optional[torch.Tensor] = None   # [B, w] int64
     mask: Optional[torch.Tensor] = None        # [B, w, T] bool
     model_len: Optional[torch.Tensor] = None   # [B] int32
+    lens: Optional[np.ndarray] = None          # [B] model_len on the host
+    entered: Optional[np.ndarray] = None       # [B] valid at entry
     write_idx: Optional[np.ndarray] = None     # [B]
     c_active: bool = False
     c_commit: Optional[np.ndarray] = None      # [B] bool
@@ -192,7 +189,7 @@ class RingEntry:
     p_len: Optional[np.ndarray] = None         # [B]
     p_on: Optional[np.ndarray] = None          # [B] bool
     p_off: Optional[np.ndarray] = None         # [B]
-    rows: dict = dataclasses.field(default_factory=dict)  # write_index memo
+    rows: dict = dataclasses.field(default_factory=dict)  # per-entry memo
 
     @classmethod
     def dead(cls, batch: int) -> "RingEntry":
@@ -225,10 +222,14 @@ def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig):
     Returns ``(stage_apply, stage_ctrl, stage_prefill)``:
 
       * ``stage_apply(layers, valid_row, kv, tkv, x, positions, mask,
-        write_idx, model_len, in_valid, *, write_rows=None) -> x_out`` -
-        one stage's layers over its in-flight tree layer ([B, w, d]).
-        Rows whose ``in_valid`` is False pass through and leave the tree
-        caches untouched; padded layers (``valid_row`` False) are skipped.
+        write_idx, model_len, in_valid, *, write_rows=None, empty=None,
+        cross=None) -> x_out`` - one stage's layers over its in-flight
+        tree layer ([B, w, d]).  Rows whose ``in_valid`` is False pass
+        through and leave the tree caches untouched; padded layers
+        (``valid_row`` False) are skipped.  ``empty`` (``empty_rows``)
+        gives the rows with no committed prefix the reference's value, as
+        ``tree_verify_step`` does; ``cross`` is the stage's per-layer
+        cross-attention K/V (``stage_cross``) of an encoder-decoder.
       * ``stage_ctrl(kv, tkv, commit_on, commit_len, index_map)`` - the
         pruning-propagation message on one stage's caches, in place:
         commit tree row 0 into the model cache at ``commit_len`` where
@@ -237,13 +238,30 @@ def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig):
       * ``stage_prefill(layers, valid_row, kv, x, on, off) -> x_out`` -
         one stage's layers in chunk mode over the prefill lane ([B, Pcap,
         d]), writing the model-cache rows [off[b], off[b] + Pcap) of the
-        slots that are ``on``.
+        slots that are ``on``.  A bundle with an encoder output never
+        uses the lane (the overlapped ring turns it off), so the lane has
+        no cross sub-layer input.
+
+    Every layer the ring accepts is a global attention layer, so
+    ``cfg.sliding_window`` is each layer's window (``tf.layer_windows``).
+    The reference's stage functions leave out an encoder-decoder's cross
+    sub-layer (``_apply_unit`` gets no encoder K/V); the port's run it, so
+    the ring computes what the local engines compute.
     """
     check_ring_supported(cfg)
     window = cfg.sliding_window
 
+    def _cross_fn(cross):
+        if cross is None:
+            return None
+
+        def attend_enc(i, p, h):
+            return attn.cross_attn_forward(p, cfg, h, cross[i])
+        return attend_enc
+
     def stage_apply(layers, valid_row, kv, tkv, x, positions, mask,
-                    write_idx, model_len, in_valid, *, write_rows=None):
+                    write_idx, model_len, in_valid, *, write_rows=None,
+                    empty=None, cross=None):
         ok = np.asarray(in_valid, bool)
         todo = [i for i, lay in enumerate(layers)
                 if lay is not None and valid_row[i]]
@@ -262,9 +280,9 @@ def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig):
                     mixer, cfg, h, positions, model_cache=kv[i],
                     model_len=model_len, tree_cache=tkv[i],
                     tree_write_index=starts, tree_mask=mask, window=window,
-                    tree_write_rows=write_rows)
+                    tree_write_rows=write_rows, empty=empty)
                 return y
-            y = tf._block(i, layers[i], x, attend)
+            y = tf._block(i, layers[i], x, attend, cross=_cross_fn(cross))
             x = y if sel is None else torch.where(sel, y, x)
         return x
 
@@ -304,24 +322,76 @@ def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig):
     return stage_apply, stage_ctrl, stage_prefill
 
 
-def _write_rows(e: RingEntry, tkv) -> object:
-    """The tree-row ``write_index`` of entry ``e``'s valid rows, once per
+def computed_rows(cfg: ModelConfig, valid, entered, lens) -> np.ndarray:
+    """[B] the rows a stage computes and writes: the valid ones, and the
+    empty ones (host committed length 0: a bucket's slot with no pending
+    layer, whose writes land in its own slack region), as the local fused
+    verify computes them.  Under MoE the rows routed together decide
+    which expert copies a capacity drops, so there every row valid at
+    entry (``entered``) is computed, a row killed in flight included, as
+    the local verify computed it (its exit is dropped): a stage meets a
+    killed layer before the ctrl or in-ring admission that follows the
+    kill, so the row reads what it would have read unkilled, and the
+    live rows' values do not hang on where the kill caught it.  Without
+    MoE a killed row passes through."""
+    rows = np.asarray(valid if cfg.moe is None else entered, bool)
+    return rows if lens is None else rows | (np.asarray(lens) == 0)
+
+
+def _write_rows(e: RingEntry, tkv, on: np.ndarray) -> object:
+    """The tree-row ``write_index`` of entry ``e``'s rows ``on``, once per
     entry and row mask: every stage's tree caches share one geometry (and,
     paged, one table)."""
     buf = next(c["k"] for c in tkv if c is not None)
     table = buf.table.data_ptr() if paging.is_paged(buf) else None
-    key = (e.valid.tobytes(), table)
+    key = (on.tobytes(), table)
     if key not in e.rows:
         b, n = e.act.shape[:2]
         e.rows[key] = attn.write_index(
             buf, tf.host_rows(e.write_idx, b), b, n,
-            on=None if e.valid.all() else e.valid)
+            on=None if on.all() else on)
     return e.rows[key]
 
 
+def empty_rows(cfg: ModelConfig, lens, mask, kv, tkv, write_idx):
+    """``attention.EmptyRows`` of a tree layer's rows whose host committed
+    length ``lens`` is 0 (a bucket's empty slots: no committed prefix, an
+    all-false mask), over one stage's caches, or None when there is none
+    (or the model is MLA, whose joint softmax needs no select): what
+    ``tree_verify_step`` passes its layers as ``empty``."""
+    slots = [i for i, ln in enumerate(np.asarray(lens)) if ln == 0]
+    if not slots or cfg.mla is not None:
+        return None
+    i = next(i for i, c in enumerate(tkv) if c is not None)
+    return attn.empty_rows(slots, mask, kv[i], tkv[i],
+                           tf.host_rows(write_idx, mask.shape[0]))
+
+
+def _empty_rows(cfg: ModelConfig, e: RingEntry, kv, tkv):
+    """``empty_rows`` of entry ``e``, once per entry (None without host
+    lengths): every stage's caches share one geometry."""
+    if e.lens is None:
+        return None
+    buf = next(c["k"] for c in tkv if c is not None)
+    key = ("empty", buf.table.data_ptr() if paging.is_paged(buf) else None)
+    if key not in e.rows:
+        e.rows[key] = empty_rows(cfg, e.lens, e.mask, kv, tkv, e.write_idx)
+    return e.rows[key]
+
+
+def stage_cross(cross_kv, n_stages: int) -> list:
+    """An encoder-decoder's per-layer cross-attention K/V (``ModelBundle.
+    cross_kv``) grouped by stage as ``split_stages`` groups the layers,
+    [S][lps] (None for padding), or S Nones without one.  One encoder
+    output serves every slot row (batch 1, broadcast)."""
+    if cross_kv is None:
+        return [None] * n_stages
+    return _by_stage(list(cross_kv), n_stages)
+
+
 def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
-                      calls: Optional[collections.Counter] = None
-                      ) -> Callable:
+                      calls: Optional[collections.Counter] = None,
+                      cross_kv=None) -> Callable:
     """The lockstep tick: ``tick(stage_layers, stage_valid, model_kv,
     tree_kv, ring, entry=None, kill=None, ctrl=None, pentry=None) ->
     (ring, exit)``, caches updated in place.
@@ -331,7 +401,9 @@ def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
       ring: ``init_ring`` or the ring the last tick returned;
       entry: None (nothing enters) or {"act" [B, w, d], "positions" [B, w],
              "mask" [B, w, T], "model_len" [B] (tensors on the card),
-             "write_idx" [B], "valid" [B], "version" [B] (host)};
+             "write_idx" [B], "valid" [B], "version" [B], "lens" [B]
+             (host; "lens" is ``model_len``, whose 0 rows are empty rows,
+             ``empty_rows``)};
       kill: [B] host bools or None - invalidate every in-flight layer and
              prefill chunk of these slots (the entry ingested this tick is
              never killed);
@@ -349,19 +421,25 @@ def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
     ``exit`` holds the entry that left the last stage: "act" (None when no
     row was valid), "valid", "version", "p_last" [B, d] (None when no
     chunk exits) and "p_valid".  A stage that holds only padding layers
-    is skipped: it passes everything through."""
+    is skipped: it passes everything through.  ``cross_kv``: an
+    encoder-decoder's per-layer cross K/V, attended by every stage's
+    layers (``stage_cross``)."""
     stage_apply, stage_ctrl, stage_prefill = make_stage_fns(cfg, pcfg)
     n_stages = pcfg.n_stages
+    crosses = stage_cross(cross_kv, n_stages)
     calls = calls if calls is not None else collections.Counter()
 
     def ingest(batch, entry, ctrl, pentry) -> RingEntry:
         e = RingEntry.dead(batch)
         if entry is not None:
             e.valid = np.array(entry["valid"], bool)
+            e.entered = e.valid.copy()
             e.version = np.array(entry.get("version", e.version), np.int64)
             e.write_idx = np.array(entry["write_idx"], np.int64)
             e.act, e.positions = entry["act"], entry["positions"]
             e.mask, e.model_len = entry["mask"], entry["model_len"]
+            if "lens" in entry:
+                e.lens = np.array(entry["lens"], np.int64)
         if ctrl is not None:
             e.c_active = bool(ctrl["active"])
             e.c_commit = np.array(ctrl["commit"], bool)
@@ -416,10 +494,13 @@ def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
                 calls["prefill_layers"] += int(np.sum(vrow))
             # 4. this stage's layers over the tree layer it holds
             if e.valid.any():
+                on = computed_rows(cfg, e.valid, e.entered, e.lens)
                 e.act = stage_apply(layers, vrow, kv, tkv, e.act,
                                     e.positions, e.mask, e.write_idx,
-                                    e.model_len, e.valid,
-                                    write_rows=_write_rows(e, tkv))
+                                    e.model_len, on,
+                                    write_rows=_write_rows(e, tkv, on),
+                                    empty=_empty_rows(cfg, e, kv, tkv),
+                                    cross=crosses[k])
                 calls["stage_apply"] += 1
                 calls["stage_layers"] += int(np.sum(vrow))
 
@@ -443,7 +524,8 @@ def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
 
 
 def make_pipeline_verify(cfg: ModelConfig, pcfg: PipelineConfig, *,
-                         calls: Optional[collections.Counter] = None):
+                         calls: Optional[collections.Counter] = None,
+                         cross_kv=None):
     """The flush schedule: ingest a batched entry layer into stage 0 of a
     fresh ring and run exactly ``n_stages`` ticks, so that it crosses
     every stage and exits (stage 0 ingests and processes on the same
@@ -453,7 +535,7 @@ def make_pipeline_verify(cfg: ModelConfig, pcfg: PipelineConfig, *,
     Returns ``verify(stage_layers, stage_valid, model_kv, tree_kv, entry)
     -> (exit_act [B, w, d], exit_valid [B])``; tree caches are written in
     place."""
-    tick = make_pipedec_tick(cfg, pcfg, calls=calls)
+    tick = make_pipedec_tick(cfg, pcfg, calls=calls, cross_kv=cross_kv)
 
     def verify(stage_layers, stage_valid, model_kv, tree_kv, entry):
         ring = init_ring(pcfg, len(entry["valid"]))

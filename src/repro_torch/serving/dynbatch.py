@@ -455,9 +455,10 @@ class SpecPipeDBEngine:
                           sampling=getattr(req, "sampling", None))
                 if ring_prefill:
                     h = self.executor.begin_prefill(slot, req.prompt)
-                    joining[slot] = _Joining(req, kw["seed"], h,
-                                             time.perf_counter())
-                    continue
+                    if h is not None:
+                        joining[slot] = _Joining(req, kw["seed"], h,
+                                                 time.perf_counter())
+                        continue
                 if self.fused:
                     self.stats.separate_prefill_dispatches += 1
                     st = self.inner.init_state(

@@ -286,8 +286,11 @@ class ShardedPipelineExecutor(PipelineExecutor):
     stage with its per-row metadata frozen at entry, and the exiting
     hidden states are unembedded into the verify logits.  The draft
     verifies and proposes through the local fused path.  Slot rows of the
-    bucket that are not pending ride along invalid: they leave the tree
-    caches untouched.
+    bucket that are not pending are empty rows (no committed prefix, an
+    all-false mask): the ring computes them beside the pending rows, as
+    the local verify does, and they write only their slack region
+    (``pipeline.computed_rows``).  A bundle's prefix is baked in by
+    ``prefill`` and its encoder output's cross K/V reach every stage.
 
     ``paged=True`` keeps every arena paged behind static identity tables
     (16-row ``page``s): the ring's target caches are densified around
@@ -300,7 +303,6 @@ class ShardedPipelineExecutor(PipelineExecutor):
                  capacity: int, n_stages: int, paged: bool = False,
                  page: int = 16):
         super().__init__(slots)
-        pl.check_ring_bundles(target, draft)
         width = tree_capacity - capacity
         if width < 1:
             raise ValueError("tree_capacity must include the width-w slack")
@@ -327,7 +329,8 @@ class ShardedPipelineExecutor(PipelineExecutor):
             self.d_tree = _paginate_full(self.d_tree, tt, self.page)
         self.arena = SlotPool(slots)
         self._verify = pl.make_pipeline_verify(target.cfg, self.plcfg,
-                                               calls=self.calls)
+                                               calls=self.calls,
+                                               cross_kv=target.cross_kv)
 
     def _draft_cache(self):
         return self.d_cache
@@ -351,6 +354,7 @@ class ShardedPipelineExecutor(PipelineExecutor):
             "mask": torch.as_tensor(masks, device=dev, dtype=torch.bool),
             "model_len": torch.as_tensor(np.asarray(model_len),
                                          device=dev).to(torch.int32),
+            "lens": np.asarray(model_len),
             "write_idx": np.asarray(write_idx), "valid": np.asarray(valid)}
         if version is not None:
             entry["version"] = np.asarray(version)
@@ -512,7 +516,10 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
         (``PREFILL_LANE``, at most ``max_len``) on consecutive ticks, the
         draft's chunk prefill beside each, so admission makes no separate
         prefill dispatch; it returns a ``Deferred`` resolved when the last
-        chunk exits.
+        chunk exits.  A bundle with a vision prefix or an encoder output
+        turns the lane off (``prefill_cap`` 0, ``begin_prefill`` returns
+        None), as the reference does: the lane embeds prompt tokens only,
+        so admission goes through the parent's separate ``prefill``.
       * ``kill(slot)`` invalidates the slot's in-flight layers and bumps
         its tree version; ``drain()`` ticks dead entries until every
         outstanding future has resolved.
@@ -533,9 +540,16 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
                          tree_capacity=tree_capacity, capacity=capacity,
                          n_stages=n_stages, paged=paged, page=page)
         self.prefill_cap = min(PREFILL_LANE, max_len)
+        if any(b.prefix_embeds is not None or b.enc_out is not None
+               for b in (target, draft)):
+            # the lane embeds prompt tokens only: a prefix or an encoder
+            # output is baked in by the parent's separate prefill, as the
+            # reference turns its lane off for such bundles
+            self.prefill_cap = 0
         self._ring = pl.init_ring(self.plcfg, slots)
         self._tick = pl.make_pipedec_tick(target.cfg, self.plcfg,
-                                          calls=self.calls)
+                                          calls=self.calls,
+                                          cross_kv=target.cross_kv)
         # per-slot tree versions and outstanding futures
         self._versions = np.zeros((slots,), np.int64)
         self._handles = [collections.deque() for _ in range(slots)]
@@ -576,7 +590,10 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
         """Queue ``slot``'s admission prefill into the ring: the prompt is
         cut into ``prefill_cap``-token chunks entering the lane on
         consecutive ticks.  Returns a ``Deferred`` resolved at the last
-        chunk's exit tick."""
+        chunk's exit tick, or None when the ring has no lane
+        (``prefill_cap`` 0): the caller prefills through ``prefill``."""
+        if not self.prefill_cap:
+            return None
         pr = np.asarray(prompt).reshape(-1).astype(np.int64)
         if self._handles[slot] or slot in self._p_handles:
             raise RuntimeError(
@@ -890,11 +907,14 @@ class AsyncPipelineExecutor(PipelineExecutor):
 
     Messages, one sequence through every stage in order:
 
-      * ``layer`` - the entering tree layer over every slot row: tokens
-        and per-row metadata with a per-slot tree-version snapshot.  Each
-        stage decides a row's liveness (snapshot == current version) when
-        it *processes* the message, so a ``kill`` stops a stale layer at
-        whatever stage it sits, not a ring revolution later.
+      * ``layer`` - the entering tree layer over the bucket's slot rows
+        (the local verify's power-of-two prefix): tokens and per-row
+        metadata with a per-slot tree-version snapshot.  Each stage
+        decides a row's liveness (snapshot == current version) when it
+        *processes* the message, so a ``kill`` stops a stale layer at
+        whatever stage it sits, not a ring revolution later; the bucket's
+        empty rows are computed beside the live ones
+        (``pipeline.computed_rows``), as the local verify computes them.
       * ``ctrl`` - pruning propagation: exit commit and prune index map
         with a ctrl-version snapshot, pushed before the next layer, so
         each stage sees the lockstep schedule's order.  A retire
@@ -941,7 +961,6 @@ class AsyncPipelineExecutor(PipelineExecutor):
             raise ValueError("AsyncPipelineExecutor has no paged arena: "
                              "serve paged caches on the lockstep ring "
                              "(ShardedPipelineExecutor, paged=True)")
-        pl.check_ring_bundles(target, draft)
         width = tree_capacity - capacity
         if width < 1:
             raise ValueError("tree_capacity must include the width-w slack")
@@ -967,6 +986,8 @@ class AsyncPipelineExecutor(PipelineExecutor):
         self.d_tree = draft.init_tree_caches(slots, tree_capacity)
         self._apply, self._ctrl, _ = pl.make_stage_fns(target.cfg,
                                                        self.plcfg)
+        self._cross = pl.stage_cross(target.cross_kv, self.n_stages)
+        self._views = [{} for _ in range(self.n_stages)]
         cuda = self.device.type == "cuda"
         # one stream per stage actor and one for the draft actor
         self._streams = [torch.cuda.Stream(device=self.device) if cuda
@@ -1185,14 +1206,24 @@ class AsyncPipelineExecutor(PipelineExecutor):
         except BaseException:
             self._fail(f"stage{k}")
 
+    def _bucket_caches(self, k: int, nb: int):
+        """Stage ``k``'s target caches over slot rows [0, nb), as views
+        made once per bucket size (the arena's tensors never change)."""
+        if nb not in self._views[k]:
+            self._views[k][nb] = (tf.slice_cache_rows(self._kv[k], 0, nb),
+                                  tf.slice_cache_rows(self._tkv[k], 0, nb))
+        return self._views[k][nb]
+
     def _stage_layer(self, k: int, ctr, msg):
-        (_, seq, x, positions, mask, model_len, write_idx, row_on,
-         versions, event) = msg
+        (_, seq, x, positions, mask, model_len, lens, empty, write_idx,
+         row_on, versions, event) = msg
+        nb = len(row_on)                # the bucket: slot rows [0, nb)
         # liveness when the stage processes the layer: a kill since entry
         # stops the stale rows here
-        live = row_on & (versions == self._versions)
+        live = row_on & (versions[:nb] == self._versions[:nb])
         stale = int(np.count_nonzero(row_on & ~live))
         ctr["stale_rows"] += stale
+        kv, tkv = self._bucket_caches(k, nb)
         if k == 0:                      # the host's arrays, embedded here
             dev = self.device
             x = embed(self.target.model.embed.table,
@@ -1201,13 +1232,20 @@ class AsyncPipelineExecutor(PipelineExecutor):
             mask = torch.as_tensor(mask, device=dev, dtype=torch.bool)
             model_len = torch.as_tensor(model_len, device=dev).to(
                 torch.int32)
+            # the empty rows' indexes, built once a layer: every stage's
+            # caches share one geometry, as on the lockstep ring
+            empty = (pl.empty_rows(self.target.cfg, lens, mask, kv, tkv,
+                                   write_idx) if live.any() else None)
         else:
-            _adopt(event, (x, positions, mask, model_len))
+            _adopt(event, (x, positions, mask, model_len,
+                           *(vars(empty).values() if empty else ())))
         vrow = self.stage_valid[k]
         if live.any() and vrow.any():
-            x = self._apply(self.stage_layers[k], vrow, self._kv[k],
-                            self._tkv[k], x, positions, mask, write_idx,
-                            model_len, live)
+            x = self._apply(self.stage_layers[k], vrow, kv, tkv, x,
+                            positions, mask, write_idx, model_len,
+                            pl.computed_rows(self.target.cfg, live, row_on,
+                                             lens), empty=empty,
+                            cross=self._cross[k])
             self._count("stage_layers", int(np.sum(vrow)))
         ctr["layers"] += 1
         self._count("stage_steps")
@@ -1217,8 +1255,8 @@ class AsyncPipelineExecutor(PipelineExecutor):
                       else None)
             return ("exit_layer", seq, logits, row_on, versions,
                     _mark(stream))
-        return ("layer", seq, x, positions, mask, model_len, write_idx,
-                row_on, versions, _mark(stream))
+        return ("layer", seq, x, positions, mask, model_len, lens, empty,
+                write_idx, row_on, versions, _mark(stream))
 
     def _stage_ctrl_msg(self, k: int, ctr, msg) -> None:
         _, _seq, commit_on, commit_len, imap, cvers = msg
@@ -1348,8 +1386,13 @@ class AsyncPipelineExecutor(PipelineExecutor):
             msk = np.array(masks, bool)
             ml = np.array(model_len, np.int64)
             wi = np.array(write_idx, np.int64)
-            self._push(("layer", self._next_seq(), tok, pos, msk, ml, wi,
-                        row_on, vers, None))
+            # the target's layer spans the bucket, as the local verify;
+            # model_len rides twice: made a tensor at stage 0, and on the
+            # host (which rows are empty); stage 0 adds the empty rows
+            nb = self._rows_on(row_on)
+            self._push(("layer", self._next_seq(), tok[:nb], pos[:nb],
+                        msk[:nb], ml[:nb], ml[:nb], None, wi[:nb],
+                        row_on[:nb], vers, None))
             self._count("entry_msgs")
             d_all = _DraftVerifyResult(self)
             self._submit_draft(("verify", tok, pos, msk, ml, wi, row_on,

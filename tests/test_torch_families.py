@@ -25,6 +25,7 @@ import torch
 
 from repro import configs as jreg
 from repro.core.speculative import ModelBundle as JaxBundle
+from repro.launch import pipeline as jpl
 from repro.models import transformer as jtf
 from repro_torch import configs as reg
 from repro_torch.checkpoint import from_jax_params, to_jax_params
@@ -275,11 +276,27 @@ def test_quantize_refuses_moe_and_mla(arch):
         tf.Transformer(dataclasses.replace(cfg, quant="int8"), "meta")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-236b",
-                                  "gemma-7b"])
+# the ring's accept-or-refuse table: what the reference's stage_layout
+# accepts (None) or the reason both packages refuse
+RING_TABLE = {"qwen2-moe-a2.7b": None, "gemma-7b": None,
+              "deepseek-v2-236b": "uniform layer stack",
+              "moonshot-v1-16b-a3b": "uniform layer stack"}
+
+
+@pytest.mark.parametrize("arch", list(RING_TABLE))
 def test_ring_refuses_new_families(arch):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        pipeline.stage_layout(reg.get_config(arch, smoke=True), 2)
+    """``stage_layout`` accepts Qwen-MoE and Gemma with the reference's
+    layout and refuses DeepSeek-V2 and Moonlight (``moe.first_dense`` 1:
+    a dense layer before the MoE stack), as the reference's does."""
+    cfg, jcfg = (r.get_config(arch, smoke=True) for r in (reg, jreg))
+    reason = RING_TABLE[arch]
+    if reason is None:
+        assert pipeline.stage_layout(cfg, 2) == jpl.stage_layout(jcfg, 2)
+        return
+    with pytest.raises(NotImplementedError, match=f"{reason}.*first_dense"):
+        pipeline.stage_layout(cfg, 2)
+    with pytest.raises(AssertionError, match=reason):
+        jpl.stage_layout(jcfg, 2)
 
 
 @pytest.mark.parametrize("arch,mode", [("qwen2-moe-a2.7b", "pipedec"),

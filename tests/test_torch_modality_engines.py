@@ -13,8 +13,9 @@ stats against the JAX engines (and PipeDec against autoregressive
 decoding); self-draft PipeDec hits every prediction; SpecPipe-DB tokens,
 stats, occupancy and the executor's call counts against the JAX
 ``SpecPipeDBEngine`` (2 slots, 3 requests, arrivals 0, 0, 3), dense and
-paged; the ring executors' and the trainer's refusals; the serving CLI
-with the two ids, text-only.
+paged; the ring executors built for the modality bundles (the
+overlapped ring with its prefill lane off) and the trainer's refusals;
+the serving CLI with the two ids, text-only.
 """
 import dataclasses
 
@@ -229,27 +230,29 @@ def test_paged_horizon_covers_a_long_prefix():
 
 
 def test_ring_refuses_modality_bundles(pair):
-    """The sharded, overlapped and async executors refuse a bundle with a
-    prefix or an encoder output (ROADMAP item 17); the encoder config is
-    refused by the ring's config check, the VLM config passes it (served
-    text-only)."""
+    """The ring's config check accepts both configs, and the sharded,
+    overlapped and async executors build for bundles carrying a prefix or
+    an encoder output: the overlapped ring with its prefill lane off
+    (``prefill_cap`` 0, ``begin_prefill`` None: admission prefills apart,
+    baking the prefix or cross K/V in, as the reference's does), the same
+    executor over the text-only bundle with its 64-token lane."""
     (t, _), (d, _) = pair["target"], pair["draft"]
     kw = dict(slots=2, max_len=MAX_LEN, tree_capacity=12, capacity=8,
               n_stages=2)
+    pipeline.check_ring_supported(t.cfg)
     for cls in (ShardedPipelineExecutor, OverlappedShardedExecutor,
                 AsyncPipelineExecutor):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            cls(t, d, **kw)
-    text_only = ModelBundle(t.model)
-    if t.cfg.is_encdec:
-        with pytest.raises(NotImplementedError, match="encoder.*item 17"):
-            pipeline.check_ring_supported(t.cfg)
-        with pytest.raises(NotImplementedError, match="item 17"):
-            ShardedPipelineExecutor(text_only, d, **kw)
-    else:
-        pipeline.check_ring_supported(t.cfg)
-        ex = ShardedPipelineExecutor(text_only, d, **kw)
+        ex = cls(t, d, **kw)
         assert ex.n_stages == 2
+        if cls is AsyncPipelineExecutor:
+            assert ex.prefill_cap == 0
+            ex.shutdown()
+        elif cls is OverlappedShardedExecutor:
+            assert ex.prefill_cap == 0
+            assert ex.begin_prefill(0, np.array([1, 2, 3])) is None
+            assert ex.calls["prefill_in_ring"] == 0
+    text_only = OverlappedShardedExecutor(ModelBundle(t.model), d, **kw)
+    assert text_only.prefill_cap == min(64, MAX_LEN)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

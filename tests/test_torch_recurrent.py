@@ -357,14 +357,16 @@ def test_tree_paths_refuse_naming_chain_mode(family):
 
 def test_int8_ring_and_trainer_refuse(family):
     """quantize() refuses through check_supported's int8 branch; the ring
-    names chain-mode and item 17, the trainer item 16."""
+    names the reference's reason (pipeline stages support attention
+    stacks) and chain-mode, the trainer item 16."""
     t, _ = family["target"]
     cfg = family["cfg"]
     with pytest.raises(NotImplementedError, match="dense attention"):
         t.quantize()
     with pytest.raises(NotImplementedError, match="dense attention"):
         tf.check_supported(dataclasses.replace(cfg, quant="int8"))
-    with pytest.raises(NotImplementedError, match=f"{CHAIN}.*item 17"):
+    with pytest.raises(NotImplementedError,
+                       match=f"attention stacks.*{CHAIN}"):
         pipeline.check_ring_supported(cfg)
     with pytest.raises(NotImplementedError, match="item 16"):
         steps.check_trainable(cfg)
