@@ -171,6 +171,23 @@ Between phases 2 and 3, with no serving model on the card:
                peak; checks: finite losses, the draft's loss falls, remat
                on equals off at step 0, step 0 equals a float64 copy of
                the draft on the card, no kernel of the port launches;
+  train-families - every family the port serves trained at published
+               width (``TRAIN_FAMILIES``; depth cut where 80 GB forces
+               it): Whisper-base whole with seeded [8, 1500, 512] frames
+               (the encoder under autograd) and on tokens alone (its
+               encoder and cross weights must move by AdamW's decay
+               alone), InternVL2 (2 of 48 layers, a seeded [8, 256, 6144]
+               prefix), Mamba-2 whole, RecurrentGemma (3 of 38: one rra
+               unit) and Qwen-MoE (2 of 24), 3 AdamW steps each at 8 x
+               128 with remat (Gemma, Qwen2.5 and DeepSeek-V2's dense MLA
+               layer are cut for the run time); ms per step, tokens
+               per second, peak memory, busy ms and idle share
+               (torch.profiler), the share of the fp32 peak counted from
+               each family's own products; checks: finite values, no
+               kernel launch, weights on the card, TF32 off, step 0
+               within 1e-5 of a float64 copy (Mamba-2's at 8 layers, its
+               16 and 24 reported beside a weight-noise probe of the
+               float64 grad norm);
   train-pair - the smoke pair trained here on one corpus by
                ``launch.train.train`` (the benchmarks' recipe), saved,
                reloaded through ``launch.serve.build_bundle(ckpt=)`` (bit
@@ -305,6 +322,34 @@ FP32_FLOP_PER_S = 67e12
 # grad norm summed over 1024 tokens and 1.24 B weights in fp32
 TOL_REMAT = 1e-6
 TOL_F64 = 1e-5
+# phase train-families: (line, registry id, decoder layers (None: whole),
+# modality input in the batch, depths of the float64 check where it is
+# held below the line's own); at published width, the depth cut where 80
+# GB of fp32 weights, grads, two moments and a float64 copy force it
+TRAIN_FAMILIES = (
+    ("whisper-base", "whisper-base", None, "frames", ()),
+    ("whisper-base tokens only", "whisper-base", None, None, ()),
+    ("internvl2-26b", "internvl2-26b", 2, "prefix", ()),
+    # the seeded 24-layer Mamba-2 amplifies fp32 rounding through its
+    # depth (step 0's grad norm 4.6e-3 from float64 at 24 layers in the
+    # first card run, the loss 4.5e-8), so the check is held at 8 layers
+    # and the line reports 16 and 24 and the weight-noise probe
+    ("mamba2-130m", "mamba2-130m", None, None, (8, 16)),
+    ("recurrentgemma-9b", "recurrentgemma-9b", 3, None, ()),
+    ("qwen2-moe-a2.7b", "qwen2-moe-a2.7b", 2, None, ()))
+# cut for the run time (a whole run took 1095.5 s on a slow host, past
+# 1050 s; the CPU tests hold these families' training): ("gemma-7b",
+# "gemma-7b", 2, None, ()), ("qwen2.5-32b", "qwen2.5-32b", 1, None, ()),
+# and DeepSeek-V2's first_dense layer (MLA, a dense MLP; one MoE layer is
+# about 3.8 B weights, past the card with AdamW): ("deepseek-v2-236b",
+# "deepseek-v2-236b", 1, None, ()); ``_train_family(*line, batches)``
+# trains one
+# the weight noise of the float64 conditioning probe: fp32's half ulp
+F64_WEIGHT_NOISE = 6e-8
+TRAIN_FAMILY_STEPS = 3
+# a zero-gradient step moves a weight by the decay alone: p (1 - lr wd)
+# against p - lr (wd p), fp32 rounding of one product and one sum
+TOL_DECAY = 1e-6
 # phase train-pair: the benchmarks' recipe (benchmarks/common.py), their
 # held-out prompts (6 x 32 bytes of corpus seed 3) and 32 new tokens each
 PAIR_STEPS, PAIR_BATCH, PAIR_SEQ, PAIR_LR, PAIR_CORPUS = (400, 8, 64, 2e-3,
@@ -1358,47 +1403,139 @@ def _byte_batches(data, batch: int, seq: int, n: int):
             (next(it) for _ in range(n))]
 
 
-def _f64_check(model, batch):
-    """Loss and global grad norm of ``batch`` for a float64 copy of
-    ``model`` on the card (the reference of the fp32 step)."""
+def _f64_check(model, batch, *, dtype=None, noise: float = 0.0):
+    """Loss and global grad norm of ``batch`` for a float64 (or
+    ``dtype``) copy of ``model`` on the card (the reference of the fp32
+    step): the train step's loss (``steps.batch_loss``, no remat), a
+    weight the loss does not reach counting 0.  ``noise`` > 0 first
+    scales each weight of the copy by 1 + noise * N(0, 1) (seed 0)."""
     import copy
     import torch
-    from repro_torch.models import transformer as tf
+    from repro_torch.launch.steps import batch_loss
     from repro_torch.models.layers import trainable
-    ref = copy.deepcopy(model).double()
+    ref = copy.deepcopy(model).to(dtype or torch.float64)
     params = trainable(ref)
-    loss = tf.loss_fn(ref, batch["tokens"], batch["labels"])
+    if noise:
+        gen = torch.Generator(device=params[0].device).manual_seed(0)
+        with torch.no_grad():
+            for p in params:
+                p.mul_(1 + noise * torch.randn(p.shape, generator=gen,
+                                               device=p.device,
+                                               dtype=p.dtype))
+    loss = batch_loss(ref, batch, remat=False)
     loss.backward()
-    gnorm = torch.sqrt(sum(torch.sum(p.grad.square()) for p in params))
+    gnorm = torch.sqrt(sum(torch.sum(p.grad.square()) for p in params
+                           if p.grad is not None))
     out = (loss.item(), gnorm.item())
     del ref, params, loss
     torch.cuda.empty_cache()
     return out
 
 
-def _train_flop(cfg, batch: int, seq: int) -> float:
+def _rel_err(got, want):
+    """[loss, grad norm] relative errors of ``got`` against ``want``."""
+    return [abs(g - w) / abs(w) for g, w in zip(got, want)]
+
+
+def _f64_depths(cfg, depths, batch):
+    """For each depth in ``depths``: the model cut to that depth, seeded
+    on the card, step 0's fp32 loss and grad norm against its float64
+    copy's.  Returns {depth: [loss, grad norm] relative errors}."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    out = {}
+    for k in depths:
+        model = tf.init_model(dataclasses.replace(cfg, num_layers=k),
+                              seed=0, device="cuda")
+        out[k] = _rel_err(_f64_check(model, batch, dtype=torch.float32),
+                          _f64_check(model, batch))
+        del model
+    return out
+
+
+def _train_flop(cfg, batch: int, seq: int, *, prefix: int = 0,
+                frames: int = 0) -> float:
     """FLOPs of the products of one training step, the backward counted
-    as twice the forward: per token, the weights of the projections, the
-    MLP and the unembedding (the untied input embedding is a lookup, not
-    a product), and the two attention products over the whole S x S
-    score matrix that plain attention computes.  Remat's recomputed
-    forward is not counted."""
-    hd = cfg.resolved_head_dim
-    mlp = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
-    layer = (cfg.d_model * hd * 2 * (cfg.num_heads + cfg.num_kv_heads)
-             + mlp * cfg.d_model * cfg.d_ff)
-    weights = cfg.num_layers * layer + cfg.d_model * cfg.vocab_size
-    attend = cfg.num_layers * 2 * seq * cfg.num_heads * hd
-    return 6.0 * batch * seq * (weights + attend)
+    as twice the forward, over the decoder's ``batch`` x (``prefix`` +
+    ``seq``) rows, each layer by its kind: the projections of attention
+    (GQA, or MLA's low-rank ones and the expansion of each row's keys and
+    values) and the two attention products over the whole score matrix
+    that plain attention computes; the MLP; a MoE block's router, the
+    grouped products over every expert's ``capacity`` rows (computed
+    whether filled or not) and its shared experts; an SSD layer's
+    projections, depthwise conv and chunked scan (C B^T, the in-chunk
+    product, the state in and out of each chunk); an RG-LRU layer's
+    projections, gates and conv (its scan is elementwise); with
+    ``frames``, the encoder's layers over them and each decoder layer's
+    cross-attention (its K/V projections per frame); the unembedding of
+    the ``seq`` rows (the input embedding is a lookup, not a product).
+    Remat's recomputed forward is not counted."""
+    from repro_torch.models import moe, transformer as tf
+    d, hd, h, kvh = (cfg.d_model, cfg.resolved_head_dim, cfg.num_heads,
+                     cfg.num_kv_heads)
+    gated = 3 if cfg.mlp_variant in ("swiglu", "geglu") else 2
+
+    def gqa(keys, heads=h):          # per query row
+        return d * hd * 2 * (heads + kvh) + 2 * keys * heads * hd
+
+    def mla(keys):
+        m = cfg.mla
+        qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+        q = (d * m.q_lora_rank + m.q_lora_rank * h * qd if m.q_lora_rank
+             else d * h * qd)
+        rows = (d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim))
+        return (q + rows + h * m.v_head_dim * d
+                + keys * h * (qd + m.v_head_dim))
+
+    s_all = prefix + seq
+    rows = batch * s_all
+    macs = batch * seq * d * cfg.vocab_size
+    for i, kind in enumerate(tf.layer_kinds(cfg)):
+        if kind == "ssm":
+            sc = cfg.ssm
+            di, n = sc.d_inner(d), sc.d_state
+            nh, q = sc.num_heads(d), min(sc.chunk, s_all)
+            macs += rows * (d * (2 * di + 2 * n + nh) + di * d
+                            + sc.d_conv * (di + 2 * n)
+                            + q * n + q * nh * sc.head_dim
+                            + 2 * nh * sc.head_dim * n)
+            continue
+        if kind == "rglru":
+            w = cfg.rglru.lru_width or d
+            macs += rows * (3 * d * w + 2 * w * w + cfg.rglru.d_conv * w)
+        else:
+            macs += rows * (mla(s_all) if cfg.mla is not None
+                            else gqa(s_all))
+        if frames and cfg.is_encdec:      # cross: q, o, attention; k, v
+            macs += rows * (2 * d * h * hd + 2 * frames * h * hd)
+            macs += batch * frames * 2 * d * kvh * hd
+        if cfg.layer_is_moe(i):
+            mo = cfg.moe
+            f = mo.d_ff_expert
+            macs += rows * (d * mo.num_experts
+                            + 3 * d * f * mo.num_shared_experts)
+            macs += mo.num_experts * moe.capacity(rows, cfg) * 3 * d * f
+        else:
+            macs += rows * gated * d * cfg.d_ff
+    if frames and cfg.is_encdec:
+        enc = cfg.encoder
+        macs += batch * frames * enc.num_layers * (
+            gqa(frames) + 2 * d * (enc.d_ff or cfg.d_ff))
+    return 6.0 * macs
 
 
 def _train_run(model, batches, steps: int, *, remat: bool,
-               profile_calls: int):
+               profile_calls: int, warmup: int = TRAIN_WARMUP,
+               after_step0=None):
     """``steps`` AdamW steps of ``launch.train.train``'s recipe (lr
     TRAIN_LR, ``max(10, steps // 20)`` warm-up steps) on ``batches``
-    through ``make_train_step``, each timed with CUDA events; then
-    ``profile_calls`` more steps, all but the first under torch.profiler.
-    Returns the run's numbers; no kernel of the port may launch."""
+    through ``make_train_step``, each timed with CUDA events (the median
+    past the first ``warmup``); then ``profile_calls`` more steps, all
+    but the first under torch.profiler.  ``after_step0(metrics)``, when
+    given, runs after step 0 (a synchronising check).  Returns the run's
+    numbers; no kernel of the port may launch."""
     import statistics
     import torch
     from repro_torch.launch.steps import make_train_step
@@ -1421,6 +1558,8 @@ def _train_run(model, batches, steps: int, *, remat: bool,
         opt, metrics = step(model, opt, batch)
         end.record()
         timed.append((start, end, metrics))
+        if after_step0 is not None and len(timed) == 1:
+            after_step0(metrics)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms = [a.elapsed_time(b) for a, b, _ in timed]
@@ -1433,9 +1572,12 @@ def _train_run(model, batches, steps: int, *, remat: bool,
     launches, _ = read_launches()
     n_params = sum(p.numel() for p in params)
     b, s = batches[0]["tokens"].shape
-    flop = _train_flop(model.cfg, b, s)
-    step_ms = statistics.median(ms[TRAIN_WARMUP:])
-    return {"remat": remat, "steps": steps, "batch": b, "seq": s,
+    modal = {k: batches[0][v].shape[1] for k, v in
+             (("prefix", "prefix_embeds"), ("frames", "frames"))
+             if batches[0].get(v) is not None}
+    flop = _train_flop(model.cfg, b, s, **modal)
+    step_ms = statistics.median(ms[warmup:])
+    return {"remat": remat, "steps": steps, "batch": b, "seq": s, **modal,
             "loss": [float(m["loss"]) for *_, m in timed],
             "grad_norm": [float(m["grad_norm"]) for *_, m in timed],
             "lr_schedule": [float(m["lr"]) for *_, m in timed],
@@ -1451,12 +1593,10 @@ def _train_run(model, batches, steps: int, *, remat: bool,
             "on_card": all(p.is_cuda for p in params)}
 
 
-def _train_line(name, cfg, run, extra, checks):
-    from repro_torch.configs import pipedec_pair
-    full = {"llama3.1-70b": pipedec_pair.TARGET,
-            "llama3.2-1b": pipedec_pair.DRAFT}[cfg.name]
-    emit({"phase": "train", "model": name, "config": cfg.name,
-          "layers": f"{cfg.num_layers} of {full.num_layers}",
+def _train_line(name, cfg, full_layers, run, extra, checks,
+                phase="train"):
+    emit({"phase": phase, "model": name, "config": cfg.name,
+          "layers": f"{cfg.num_layers} of {full_layers}",
           "lr": TRAIN_LR,
           "fp32_peak_flop_per_s": FP32_FLOP_PER_S, **run, **extra,
           "checks": checks, "ok": all(checks.values())})
@@ -1511,7 +1651,8 @@ def _draft_checks(runs, f64, common, *, falls: bool):
             checks["f64_equal"] = max(err) <= TOL_F64
             extra = {"f64": {"loss": f64[0], "grad_norm": f64[1],
                              "rel_err": err, "tol": TOL_F64}}
-        ok = _train_line("draft", pipedec_pair.DRAFT, run, extra,
+        ok = _train_line("draft", pipedec_pair.DRAFT,
+                         pipedec_pair.DRAFT.num_layers, run, extra,
                          checks) and ok
     return ok
 
@@ -1553,9 +1694,135 @@ def phase_train(state):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    ok = _train_line("target", tcfg, run, {}, checks) and ok
+    ok = _train_line("target", tcfg, pipedec_pair.TARGET.num_layers, run,
+                     {}, checks) and ok
     if not ok:
         raise AssertionError("train phase failed: see its lines")
+
+
+def _decay_check(model, names):
+    """``after_step0`` for a zero-gradient AdamW step: each weight of
+    ``model`` named in ``names`` must equal its value before the step times
+    ``1 - lr * weight_decay`` (m and v stay 0, so the update is the decay
+    alone).  Fills and returns {"max_rel_err", "moved"}: the largest
+    ``|p - want| / max|p_before|`` and whether every weight changed."""
+    import torch
+    from repro_torch.optim import AdamWConfig
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n in names}
+    out = {"weights": len(before), "tol": TOL_DECAY}
+
+    def check(metrics):
+        factor = 1 - float(metrics["lr"]) * AdamWConfig().weight_decay
+        errs, moved = [], True
+        for n, p in model.named_parameters():
+            if n in before:
+                b = before[n]
+                errs.append(((p.detach() - b * factor).abs().max()
+                             / b.abs().max().clamp_min(1e-30)).item())
+                moved = moved and not torch.equal(p.detach(), b)
+        out.update(max_rel_err=max(errs), moved=moved)
+        before.clear()
+    return out, check
+
+
+def _train_family(name, arch, layers, modal, f64_cut, batches):
+    """One ``train-families`` line: ``arch`` at published width, cut to
+    ``layers`` decoder layers (None: whole), seeded on the card, with
+    ``modal`` ("frames", "prefix" or None) in every batch; step 0 of the
+    fp32 run against a float64 copy, TRAIN_FAMILY_STEPS AdamW steps with
+    remat through ``make_train_step``.  With ``f64_cut`` (depths), the
+    float64 check is held at the first of them (fp32 against float64 of
+    the model cut there), and the line reports the relative errors at
+    each depth and at the whole one, and how far the whole model's
+    float64 grad norm moves when its weights are scaled by 1 + 6e-8 N(0,
+    1) (fp32 rounding of the weights alone).  Without frames an
+    encoder-decoder's encoder and cross sub-layers take no gradient:
+    their weights must move by the decay alone.  Returns whether every
+    check held."""
+    import dataclasses
+    import gc
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tf
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    model = tf.init_model(cfg, seed=0, device="cuda")
+    extra = {}
+    if modal == "frames":
+        extra["frames"] = frontends.stub_audio_frames(
+            cfg, TRAIN_BATCH, seed=2, device="cuda")
+    elif modal == "prefix":
+        extra["prefix_embeds"] = frontends.stub_vision_prefix(
+            cfg, TRAIN_BATCH, seed=2, device="cuda")
+    batches = [{**b, **extra} for b in batches]
+    f64 = _f64_check(model, batches[0])
+    if f64_cut:
+        noisy = _f64_check(model, batches[0], noise=F64_WEIGHT_NOISE)
+    decay, after0 = None, None
+    if cfg.is_encdec and modal is None:
+        names = {n for n, _ in model.named_parameters()
+                 if n.startswith("encoder.") or ".cross" in n}
+        decay, after0 = _decay_check(model, names)
+    run = _train_run(model, batches, TRAIN_FAMILY_STEPS, remat=True,
+                     profile_calls=2, warmup=1, after_step0=after0)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = _rel_err([run["loss"][0], run["grad_norm"][0]], f64)
+    f64_line = {"loss": f64[0], "grad_norm": f64[1], "rel_err": err,
+                "tol": TOL_F64, "depth": cfg.num_layers}
+    if f64_cut:
+        cut = _f64_depths(cfg, f64_cut, batches[0])
+        f64_line.update(
+            depth=f64_cut[0], whole_rel_err=err,
+            rel_err=cut[f64_cut[0]],
+            rel_err_by_depth={**cut, cfg.num_layers: err},
+            weight_noise=F64_WEIGHT_NOISE,
+            noise_rel_change=_rel_err(noisy, f64))
+    checks = {"finite": all(map(math.isfinite, run["loss"]
+                                + run["grad_norm"])),
+              "no_kernel_launch": run["kernel_launches"] == 0,
+              "on_card": run["on_card"],
+              "tf32_off": not torch.backends.cuda.matmul.allow_tf32,
+              "f64_equal": max(f64_line["rel_err"]) <= TOL_F64}
+    info = {"f64": f64_line, "modal_input": modal}
+    if cfg.is_encdec:
+        info["encoder_layers"] = cfg.encoder.num_layers
+    if decay is not None:
+        checks["zero_grad_decay"] = (decay.get("moved", False) and
+                                     decay["max_rel_err"] <= TOL_DECAY)
+        info["zero_grad_decay"] = decay
+    return _train_line(name, cfg, full.num_layers, run, info, checks,
+                       phase="train-families")
+
+
+def phase_train_families(state):
+    """Every family the port serves trained at published width
+    (TRAIN_FAMILIES), TRAIN_FAMILY_STEPS AdamW steps each at the JAX CLI's
+    batch on the trainer's corpus."""
+    import gc
+    import torch
+    from repro_torch.data import synthetic_corpus
+    batches = _byte_batches(synthetic_corpus(TRAIN_CORPUS, seed=0),
+                            TRAIN_BATCH, TRAIN_SEQ, TRAIN_FAMILY_STEPS + 2)
+    failed = []
+    for name, arch, layers, modal, f64_cut in TRAIN_FAMILIES:
+        try:
+            if not _train_family(name, arch, layers, modal, f64_cut,
+                                 batches):
+                failed.append(name)
+        except Exception as exc:   # record, train the other families
+            traceback.print_exc()
+            failed.append(name)
+            emit({"phase": "train-families", "model": name, "ok": False,
+                  "error": repr(exc)})
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"train-families failed: {failed}")
 
 
 def _eval_prompts():
@@ -4056,6 +4323,7 @@ def main() -> int:
 
     state, failed = {"launches": {}}, []
     for name, phase in (("kernels", phase_kernels), ("train", phase_train),
+                        ("train-families", phase_train_families),
                         ("train-pair", phase_train_pair),
                         ("serve", phase_serve),
                         ("self-draft", phase_self_draft),

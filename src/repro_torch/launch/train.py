@@ -10,7 +10,7 @@ cosine decay to 0 at ``--steps``.  The weights are the port's own draw
 from the seed (the JAX package's distributions, not its values).  A
 checkpoint is the JAX parameter pytree (``{"params": ...}``, flat-key
 ``.npz``), which the JAX package and ``launch.serve.build_bundle(ckpt=)``
-both load.
+both load.  ``--arch`` takes every registry id the port serves.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from repro_torch.checkpoint import save_pytree, to_jax_params
 from repro_torch.data import (BYTE_VOCAB, ByteCorpus, DataConfig,
                               batch_iterator, synthetic_corpus)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.steps import check_trainable, make_train_step
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import trainable
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -35,9 +35,11 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 3e-4,
     """Train ``cfg`` on the synthetic byte corpus for ``steps`` steps on
     ``device`` (the card unless the caller asks for the CPU); returns
     (model, losses) and saves a checkpoint to ``ckpt`` when given.  The
-    returned model's weights take no gradient, as a served model's.  The
-    modality families are refused (``steps.check_trainable``)."""
-    check_trainable(cfg)
+    returned model's weights take no gradient, as a served model's.  Every
+    family the port serves trains, on tokens and labels alone as in the
+    JAX CLI (an encoder-decoder without frames, a VLM without a prefix);
+    int8 configs are refused (``layers.trainable``)."""
+    tf.check_supported(cfg)
     if cfg.vocab_size < BYTE_VOCAB:
         raise ValueError(f"the byte pipeline needs vocab >= {BYTE_VOCAB}, "
                          f"{cfg.name} has {cfg.vocab_size}")

@@ -556,11 +556,16 @@ def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
     return _out(p, _heads_first(out)), cache
 
 
-def attn_bidir(p: Attention, cfg: ModelConfig, x, positions):
+def attn_bidir(p: Attention, cfg: ModelConfig, x, positions, *,
+               train: bool = False):
     """Bidirectional self-attention of a whole sequence (the encoder's):
     RoPE at ``positions`` [B,S], every query over every key, through the
-    flash kernel (``ops.full_attention``).  Returns out [B,S,d]."""
+    flash kernel (``ops.full_attention``), or, with ``train``, plain
+    ``gqa_attend`` with no mask under autograd (the reference's
+    ``attn_forward(causal=False)``).  Returns out [B,S,d]."""
     q, k, v = project_qkv(p, cfg, x, positions)
+    if train:
+        return _out(p, gqa_attend(q, k, v, None))
     out = ops.full_attention(_heads_first(q), _heads_first(k),
                              _heads_first(v))
     return _out(p, _heads_first(out))

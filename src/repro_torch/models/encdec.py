@@ -6,16 +6,19 @@ The modality front (mel spectrogram and convolutions) is a stub
 Each layer is pre-norm bidirectional self-attention (RoPE on positions
 0..T-1, no mask; the decoder's head counts) then a pre-norm GELU MLP of
 width ``encoder.d_ff`` (the decoder's ``d_ff`` when 0), and a final norm
-closes the tower.  The attention goes through the flash kernel with no
+closes the tower.  Serving attends through the flash kernel with no
 causal bound and every key valid (``ops.full_attention``; its plain
 version on the CPU), where the reference attends in plain ``jnp``: the
-same function.
+same function.  Training (``encode(train=True)``) attends in plain
+PyTorch under autograd, as the reference does under ``jax.grad``.
 
 The reference stacks the layers' leaves along a leading axis
 (``{"layers": ..., "final_norm": ...}``); here each layer is an
 ``EncoderLayer`` and the weight bridge stacks and unstacks them.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -60,14 +63,19 @@ class Encoder(nn.Module):
         self.final_norm.reset_parameters()
 
 
-@torch.no_grad()
-def encode(encoder: Encoder, cfg: ModelConfig, frames) -> torch.Tensor:
-    """Frame embeddings [B, T, d] -> the encoder output [B, T, d]."""
-    dev = encoder.final_norm.scale.device
-    x = torch.as_tensor(frames, device=dev).float()
+def encode(encoder: Encoder, cfg: ModelConfig, frames, *,
+           train: bool = False) -> torch.Tensor:
+    """Frame embeddings [B, T, d] -> the encoder output [B, T, d]: under
+    ``no_grad`` through the flash kernel, or, with ``train``, under
+    autograd with the attention in plain PyTorch (the kernel has no
+    backward), so a loss over the output reaches the encoder's weights."""
+    scale = encoder.final_norm.scale
+    x = torch.as_tensor(frames, device=scale.device).to(scale.dtype)
     b, t = x.shape[:2]
-    positions = torch.arange(t, device=dev).expand(b, t)
-    for layer in encoder.layers:
-        x = x + attn.attn_bidir(layer.attn, cfg, layer.norm1(x), positions)
-        x = x + mlp(layer.mlp, layer.norm2(x))
-    return encoder.final_norm(x)
+    positions = torch.arange(t, device=scale.device).expand(b, t)
+    with contextlib.nullcontext() if train else torch.no_grad():
+        for layer in encoder.layers:
+            x = x + attn.attn_bidir(layer.attn, cfg, layer.norm1(x),
+                                    positions, train=train)
+            x = x + mlp(layer.mlp, layer.norm2(x))
+        return encoder.final_norm(x)

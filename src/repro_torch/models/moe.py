@@ -28,7 +28,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, dense_init_, mlp, param
+from repro_torch.models.layers import MLP, dense_init_, mlp, param, wide
 
 
 class MoE(nn.Module):
@@ -74,7 +74,7 @@ def route(p: MoE, cfg: ModelConfig, x_flat) -> Tuple[torch.Tensor, ...]:
     sum_e (share of copies sent to e) * (mean probability of e)."""
     mo = cfg.moe
     k, e = mo.experts_per_token, mo.num_experts
-    probs = torch.softmax(x_flat.float() @ p.router, dim=-1)
+    probs = torch.softmax(wide(x_flat) @ p.router, dim=-1)
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[:, :k], idx[:, :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)

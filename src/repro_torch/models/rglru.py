@@ -26,7 +26,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init_, gelu, param
+from repro_torch.models.layers import dense_init_, gelu, param, wide
 
 _C = 8.0
 
@@ -69,10 +69,11 @@ class RGLRU(nn.Module):
 
 
 def _gates(p: RGLRU, x):
-    """x [..., w] -> (log_a, gated input), both fp32."""
-    xf = x.float()
-    r = torch.sigmoid(xf @ p.w_a.float())
-    i = torch.sigmoid(xf @ p.w_i.float())
+    """x [..., w] -> (log_a, gated input), both fp32 (float64 for a
+    float64 model)."""
+    xf = wide(x)
+    r = torch.sigmoid(xf @ wide(p.w_a))
+    i = torch.sigmoid(xf @ wide(p.w_i))
     log_a = -_C * r * F.softplus(-p.lam)        # log sigmoid(lambda)^(c r)
     a2 = torch.exp(2.0 * log_a)
     return log_a, torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * (i * xf)

@@ -26,7 +26,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, dense_init_, param, rmsnorm
+from repro_torch.models.layers import (RMSNorm, dense_init_, param, rmsnorm,
+                                       wide)
 
 
 def _dims(cfg: ModelConfig):
@@ -83,28 +84,33 @@ def _conv_full(p: SSM, xbc):
 
 
 def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, initial_state=None):
-    """Chunked SSD scan (the reference's algorithm, fp32).
+    """Chunked SSD scan (the reference's algorithm, in fp32, or float64
+    for float64 inputs).
 
     x [b,T,H,hd] (conv'd, activated), dt [b,T,H] (softplus'd), A [H]
     (negative), B/C [b,T,N], D [H]; T a multiple of ``chunk``.  Returns
-    (y [b,T,H,hd], final_state [b,H,hd,N] fp32)."""
+    (y [b,T,H,hd], final_state [b,H,hd,N] fp32 or float64)."""
     b, t, h, hd = x.shape
     n = B.shape[-1]
     q = chunk
     if t % q:
         raise ValueError(f"T={t} is not a multiple of the chunk {q}")
     nc = t // q
-    xr = x.reshape(b, nc, q, h, hd).float()
-    dtr = dt.reshape(b, nc, q, h).float()
-    Br = B.reshape(b, nc, q, n).float()
-    Cr = C.reshape(b, nc, q, n).float()
+    xr = wide(x.reshape(b, nc, q, h, hd))
+    dtr = wide(dt.reshape(b, nc, q, h))
+    Br = wide(B.reshape(b, nc, q, n))
+    Cr = wide(C.reshape(b, nc, q, n))
 
     cum = torch.cumsum(dtr * A, dim=2)                  # inclusive
-    # in-chunk decay L[i, j] = exp(cum_i - cum_j), j <= i
+    # in-chunk decay L[i, j] = exp(cum_i - cum_j), j <= i.  Above the
+    # diagonal li is positive and grows with the chunk's sum of dt |A|;
+    # masking it to -inf before exp gives the same 0 there, where
+    # selecting 0 after exp would backpropagate 0 * inf = nan once
+    # exp overflows (li > 88.7 in fp32)
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [b,nc,q,q,h]
     ar = torch.arange(q, device=x.device)
     mask = (ar[:, None] >= ar[None, :])[None, None, :, :, None]
-    L = torch.where(mask, torch.exp(li), torch.zeros((), device=x.device))
+    L = torch.exp(li.masked_fill(~mask, -torch.inf))
 
     cb = torch.einsum("bcin,bcjn->bcij", Cr, Br)
     w = cb[..., None] * L
@@ -115,8 +121,8 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, initial_state=None):
     s_in = torch.einsum("bcjh,bcjh,bcjhd,bcjn->bchdn", decay_out, dtr, xr,
                         Br)
 
-    state = (torch.zeros((b, h, hd, n), dtype=torch.float32, device=x.device)
-             if initial_state is None else initial_state.float())
+    state = (torch.zeros((b, h, hd, n), dtype=xr.dtype, device=x.device)
+             if initial_state is None else wide(initial_state))
     prev = []
     for c in range(nc):       # the state entering each chunk
         prev.append(state)
@@ -126,7 +132,7 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, initial_state=None):
     y_inter = torch.einsum("bcin,bcih,bchdn->bcihd", Cr, torch.exp(cum),
                            prev_states)
     y = (y_intra + y_inter).reshape(b, t, h, hd)
-    y = y + x.float() * D[None, None, :, None]
+    y = y + wide(x) * D[None, None, :, None]
     return y.to(x.dtype), state
 
 
@@ -140,7 +146,7 @@ def ssm_forward(p: SSM, cfg: ModelConfig, x_in, *, initial_state=None
     pre_conv = xbc
     xbc = _conv_full(p, xbc)
     xi, B, C = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
-    dt = F.softplus(dt.float() + p.dt_bias)
+    dt = F.softplus(wide(dt) + p.dt_bias)
     A = -torch.exp(p.A_log)
     b, t, _ = x_in.shape
     q = min(s.chunk, t)

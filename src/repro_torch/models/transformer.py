@@ -21,7 +21,8 @@ encoder-decoder's encoder output, ``encdec.encode``) is attended by each
 decoder layer's ``cross`` sub-layer (self-attention, then ``cross_norm``
 + cross-attention, then ``norm2`` + MLP), in every mode; without
 ``enc_out`` the sub-layer is skipped.  ``forward`` and ``loss_fn`` take
-``enc_out``; the serving step functions take the layers' cross K/V as
+``enc_out`` (``encdec.encode(train=True)`` in training, so the encoder
+takes gradients); the serving step functions take the layers' cross K/V as
 ``cross_kv``, computed once per encoder output by ``encode_cross_kv``
 (``ModelBundle`` does so).
 
@@ -341,7 +342,7 @@ def encode_cross_kv(model: Transformer, enc_out) -> list:
     encoder output ``enc_out`` [1|B,T,d] (``attention.encode_cross_kv``),
     to be computed once per encoder output and passed to the serving step
     functions as ``cross_kv``."""
-    enc = torch.as_tensor(enc_out, device=model.device).float()
+    enc = wide(torch.as_tensor(enc_out, device=model.device))
     return [attn.encode_cross_kv(layer.cross, model.cfg, enc)
             for layer in model.layers]
 

@@ -9,7 +9,11 @@ another order):
   * the step is counted before the schedule and the bias corrections;
   * the clip scale is ``min(1, clip_norm / max(gnorm, 1e-9))``;
   * the decay ``weight_decay * p`` is decoupled and applies to every
-    tensor, norms and embeddings included.
+    tensor, norms and embeddings included;
+  * a gradient of ``None`` (a weight the loss does not reach, whose
+    ``.grad`` autograd leaves unset) is the zero gradient ``jax.grad``
+    gives such a leaf: it adds 0 to the global norm, its moments decay
+    and the weight decay still moves it, with no zero tensor made.
 
 The step, the schedule and the clip scale stay on the parameters' device
 as 0-d tensors, so a step never waits for the card.  Parameters, ``m``
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,10 +54,11 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 @torch.no_grad()
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
+def global_norm(tensors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32; a ``None``
+    counts as zeros."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tensors))
+                          for x in tensors if x is not None))
 
 
 def adamw_init(params: Sequence[torch.Tensor]) -> dict:
@@ -66,10 +71,11 @@ def adamw_init(params: Sequence[torch.Tensor]) -> dict:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: List[torch.Tensor],
-                 grads: Sequence[torch.Tensor], state: dict
+                 grads: Sequence[Optional[torch.Tensor]], state: dict
                  ) -> Tuple[List[torch.Tensor], dict, dict]:
     """One AdamW step: ``params`` and the moments of ``state`` are updated
-    in place.  Returns (params, state, {"grad_norm", "lr"})."""
+    in place; a ``None`` gradient is a zero one.  Returns (params, state,
+    {"grad_norm", "lr"})."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -79,10 +85,13 @@ def adamw_update(cfg: AdamWConfig, params: List[torch.Tensor],
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
     lr = cosine_schedule(cfg, step)
     for p, g, m, v in zip(params, grads, state["m"], state["v"]):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        del g
+        m.mul_(cfg.b1)
+        v.mul_(cfg.b2)
+        if g is not None:     # None: b * m + (1 - b) * 0, exactly
+            g = g.float() * scale
+            m.add_((1 - cfg.b1) * g)
+            v.add_((1 - cfg.b2) * g * g)
+            del g
         delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
         delta.add_(cfg.weight_decay * p)
         p.sub_(lr * delta)

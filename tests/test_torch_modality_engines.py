@@ -14,8 +14,9 @@ decoding); self-draft PipeDec hits every prediction; SpecPipe-DB tokens,
 stats, occupancy and the executor's call counts against the JAX
 ``SpecPipeDBEngine`` (2 slots, 3 requests, arrivals 0, 0, 3), dense and
 paged; the ring executors built for the modality bundles (the
-overlapped ring with its prefill lane off) and the trainer's refusals;
-the serving CLI with the two ids, text-only.
+overlapped ring with its prefill lane off); one train step of each
+family, with its prefix or frames, and the trainer's refusal of its int8
+form; the serving CLI with the two ids, text-only.
 """
 import dataclasses
 
@@ -47,6 +48,9 @@ from repro_torch.core.pipedec import PipeDecConfig, PipeDecEngine
 from repro_torch.core.speculative import ModelBundle
 from repro_torch.launch import pipeline, serve, steps, train
 from repro_torch.models import encdec
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import trainable
+from repro_torch.optim import adamw_init
 from repro_torch.serving import (AsyncPipelineExecutor, LocalFusedExecutor,
                                  OverlappedShardedExecutor, Request,
                                  ShardedPipelineExecutor, SpecPipeDBEngine)
@@ -257,11 +261,36 @@ def test_ring_refuses_modality_bundles(pair):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_trainer_refuses_modality_configs(arch):
+    """The trainer takes the modality configs: one CPU step of
+    ``make_train_step`` on a batch with the family's prefix or frames
+    moves every weight, and ``launch.train`` trains one step on tokens
+    alone; only InternVL2's int8 form is refused (``layers.trainable``;
+    Whisper has none)."""
     cfg = reg.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        steps.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.train(cfg, steps=1, batch=1, seq=8, device="cpu")
+    model = tf.init_model(cfg, seed=0, device="cpu")
+    before = [p.clone() for p in model.parameters()]
+    opt = adamw_init(trainable(model))
+    rng = np.random.default_rng(1)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 8)),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 8))}
+    n = (cfg.encoder.max_source_positions if cfg.is_encdec
+         else cfg.prefix_tokens)
+    batch["frames" if cfg.is_encdec else "prefix_embeds"] = (
+        0.02 * rng.normal(size=(2, n, cfg.d_model))).astype(np.float32)
+    opt, metrics = steps.make_train_step(cfg)(model, opt, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(not torch.equal(a, b)
+               for a, b in zip(before, model.parameters()))
+    _, losses = train.train(cfg, steps=1, batch=1, seq=8, device="cpu",
+                            log_every=0)
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    bundle = ModelBundle(tf.init_model(cfg, seed=0, device="cpu"))
+    if cfg.is_encdec:        # Whisper has no int8 form to train
+        with pytest.raises(NotImplementedError, match="int8"):
+            bundle.quantize()
+    else:
+        with pytest.raises(ValueError, match="int8"):
+            trainable(bundle.quantize().model)
 
 
 @pytest.mark.parametrize("arch,mode", [("whisper-base", "pipedec-db"),

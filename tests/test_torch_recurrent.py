@@ -13,7 +13,8 @@ Tolerance: logits within 1e-4, tokens and every ``GenStats`` field equal.
 Also here: the per-layer order against the reference's ``layout``, the
 bridge both ways, a recycled arena slot equal to a fresh one (dense and
 paged), and the refusals: the tree paths (PipeDec, STPP, SpecPipe-DB,
-chunked prefill) name chain-mode, int8, the ring and the trainer refuse.
+chunked prefill) name chain-mode, int8 and the ring refuse; the trainer
+takes one step.
 """
 import dataclasses
 
@@ -40,6 +41,8 @@ from repro_torch.core.speculative import ModelBundle
 from repro_torch.launch import pipeline, serve, steps
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import trainable
+from repro_torch.optim import adamw_init
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.dynbatch import SpecPipeDBEngine
 from repro_torch.serving.scheduler import KVArena, PagedKVArena
@@ -358,7 +361,8 @@ def test_tree_paths_refuse_naming_chain_mode(family):
 def test_int8_ring_and_trainer_refuse(family):
     """quantize() refuses through check_supported's int8 branch; the ring
     names the reference's reason (pipeline stages support attention
-    stacks) and chain-mode, the trainer item 16."""
+    stacks) and chain-mode.  The trainer no longer refuses: one CPU step
+    of ``make_train_step`` moves every weight with a finite loss."""
     t, _ = family["target"]
     cfg = family["cfg"]
     with pytest.raises(NotImplementedError, match="dense attention"):
@@ -368,8 +372,15 @@ def test_int8_ring_and_trainer_refuse(family):
     with pytest.raises(NotImplementedError,
                        match=f"attention stacks.*{CHAIN}"):
         pipeline.check_ring_supported(cfg)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        steps.check_trainable(cfg)
+    model = from_jax_params(cfg, family["params"], device="cpu")
+    before = [p.clone() for p in model.parameters()]
+    opt = adamw_init(trainable(model))
+    tokens = _prompt(cfg, 12)[None].repeat(2, 0)
+    opt, metrics = steps.make_train_step(cfg)(
+        model, opt, {"tokens": tokens, "labels": np.roll(tokens, -1, 1)})
+    assert np.isfinite(float(metrics["loss"]))
+    assert all(not torch.equal(a, b)
+               for a, b in zip(before, model.parameters()))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b"])

@@ -135,11 +135,15 @@ def _batch(cfg, b=2, s=21, seed=0):
 
 def _port_grads(model) -> dict:
     """The models' ``.grad`` tensors as the JAX pytree (``to_jax_params``
-    of a copy holding them)."""
+    of a copy holding them); a weight the loss did not reach (``.grad``
+    None) gives zeros, as ``jax.grad`` does."""
     g = copy.deepcopy(model)
     with torch.no_grad():
         for p, q in zip(g.parameters(), model.parameters()):
-            p.copy_(q.grad)
+            if q.grad is None:
+                p.zero_()
+            else:
+                p.copy_(q.grad)
     return to_jax_params(g)
 
 
