@@ -118,7 +118,8 @@ Phases, each printed as JSON objects, one per line:
                  and int8, and with the MoE and MLA smoke targets;
 16a. family-<arch> - the attention families at published widths
                  (FAMILY_ARCHS: Qwen 2.5 and 1.5 and Moonlight cut to 8
-                 layers, Gemma-7b and Qwen-MoE whole, DeepSeek-V2 to 3):
+                 layers, Gemma-7b whole, Qwen-MoE to 12, DeepSeek-V2 to
+                 3):
                  PipeDec (8 stages, width 8, branch 4) with a seeded
                  2-layer dense draft on two prompts, lossless against
                  autoregressive decoding (near-tie rule); the target as its
@@ -150,6 +151,30 @@ Phases, each printed as JSON objects, one per line:
                  against int8 autoregressive decoding, dequant_matmul
                  launches 7 x layers x calls, Gemma's int8 attention on
                  the head_dim 256 int8 instances;
+16e. window    - long_500k's window override (4096 keys,
+                 ``launch.specs.window_override``) at Qwen2.5-32B's
+                 published width, 8 of 64 layers, with the seeded 2-layer
+                 draft: one layer's decode attention at 524,288 rows
+                 against its plain version, with and without the window,
+                 kernel / plain / SDPA times beside the bound; one decode
+                 at row 524,287 of a seeded 524,288-row cache (34.4 GB of
+                 K/V) through the bundle's override, 8 flash launches,
+                 its logits against the same decode on a paged cache that
+                 backs only the window's rows, ms a step with and without
+                 the override; the windowed tree-verify entry points,
+                 dense and paged, against plain; two prompts of 4160 and
+                 4224 tokens: PipeDec lossless against autoregressive
+                 decoding, SpecPipe-DB paged equal to dense, the 8-stage
+                 flush ring equal to the local run bit for bit, the
+                 overlapped ring with its prefill lane off, launches as
+                 the calls imply;
+16f. dryrun    - ``python -m repro_torch.launch.dryrun --all
+                 --both-meshes`` in a subprocess, alone (80 rows ok, its
+                 seconds), and meanwhile
+                 Gemma-7b's and Qwen-MoE's bf16 weights and
+                 a 1 x 32,768 cache built on the card: the specs' byte
+                 counts against the bytes held, the allocator's requested
+                 bytes and ``memory_allocated`` within its rounding;
  17. sharded-check - ``python -m repro_torch.launch.sharded_check
                  --stages 4`` with --overlap --async --quant, then with
                  --overlap --paged --quant, each in a process of its own:
@@ -214,7 +239,9 @@ import collections
 import contextlib
 import io
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -224,12 +251,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks: HBM bandwidth and the tensor cores' dense TF32
-# (the attention kernels' 3xTF32 products) and bf16 rates (the
-# dequant-matmul's bf16 passes).
-HBM_BYTES_PER_S = 3.35e12
-TF32_FLOP_PER_S = 495e12
-BF16_FLOP_PER_S = 989e12
 # products per fp32 product: the attention kernels' 3xTF32, the
 # dequant-matmul's bf16 terms of x (kernels/quant.py PASSES)
 TF32_PASSES = 3
@@ -277,7 +298,9 @@ TARGET_LAYERS = 8        # one layer per stage of the paper's 8-stage pipeline
 DRAFT_LAYERS = 4
 SERVE_REQUESTS = 3
 SHARDED_CHECK_STAGES = 4
-SERVE_NEW_TOKENS = 32
+# 16 new tokens a serving request (32 until the window and dryrun phases:
+# a run with them on a slow host took 1280.8 s, PERF.md section 4)
+SERVE_NEW_TOKENS = 16
 SELF_DRAFT_NEW_TOKENS = 40
 # SpecPipe-DB: slots, the arrival timestep of each of phase 3's prompts (a
 # slot is recycled and the bucket changes size during the run), the arena
@@ -313,9 +336,6 @@ TRAIN_STEPS, TRAIN_TARGET_STEPS, TRAIN_WARMUP, TRAIN_PROFILE = 20, 5, 2, 3
 # training attention is the chunked form (a checkpoint per 1024-row query
 # chunk) and the loss sums 8 CE chunks of 256 rows
 TRAIN_LONG_BATCH, TRAIN_LONG_SEQ, TRAIN_LONG_STEPS = 1, 2048, 3
-# H100 SXM fp32 outside the tensor cores (NVIDIA's data sheet, dense): the
-# training matmuls are IEEE fp32 sgemm, TF32 off
-FP32_FLOP_PER_S = 67e12
 # remat on against off: the same products on the same inputs (the
 # recomputed forward repeats the first), so equal bits are expected; fp32
 # against a float64 copy of the draft on the same batch: a loss and a
@@ -355,6 +375,15 @@ TOL_DECAY = 1e-6
 PAIR_STEPS, PAIR_BATCH, PAIR_SEQ, PAIR_LR, PAIR_CORPUS = (400, 8, 64, 2e-3,
                                                           1 << 17)
 PAIR_PROMPTS, PAIR_PROMPT_LEN, PAIR_NEW_TOKENS, PAIR_MAX_LEN = 6, 32, 32, 256
+
+
+def _peak(name: str) -> float:
+    """A published H100 SXM peak of ``repro_torch.launch.analysis``: HBM
+    bytes/s, and FLOP/s of the tensor cores' dense TF32 (the attention
+    kernels' 3xTF32 products) and bf16 (the dequant-matmul's passes), and
+    of IEEE fp32 outside the tensor cores (training's sgemm, TF32 off)."""
+    from repro_torch.launch import analysis
+    return getattr(analysis, name)
 
 
 def emit(obj) -> None:
@@ -433,11 +462,11 @@ def _bound(valid, b, h, kvh, n, hd, extra_bytes, int8=False,
     nbytes = 4 * (2 * b * h * n * hd + 2 * b * h * n) + rows * kvh * kv_row
     nbytes += extra_bytes
     flops = 4 * hd * (h * int(valid.sum()))
-    return _roofline(nbytes, TF32_PASSES * flops, TF32_FLOP_PER_S)
+    return _roofline(nbytes, TF32_PASSES * flops, _peak("TF32_FLOP_PER_S"))
 
 
 def _roofline(nbytes, flops, peak):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / _peak("HBM_BYTES_PER_S") * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -815,7 +844,7 @@ def dequant_cases(torch, dev, summary):
         # bf16 weights, at the tensor cores' bf16 peak
         bound_ms, bound_by = _roofline(
             k * n + 4 * n + 4 * m * k + 4 * m * n,
-            quant.PASSES * 2 * m * k * n, BF16_FLOP_PER_S)
+            quant.PASSES * 2 * m * k * n, _peak("BF16_FLOP_PER_S"))
         (k_ms, k_eager), (p_ms, p_eager) = cuda_ms(run), cuda_ms(plain)
         lib_ms, lib_eager = cuda_ms(library)
         splits, chunk = quant.k_split(k, n)
@@ -1585,7 +1614,8 @@ def _train_run(model, batches, steps: int, *, remat: bool,
             "tokens_per_s": b * s / step_ms * 1e3,
             "peak_mem_gb": peak_gb, "params": n_params,
             "tflop_per_step": flop / 1e12,
-            "fp32_peak_share": flop / (step_ms / 1e3) / FP32_FLOP_PER_S,
+            "fp32_peak_share": flop / (step_ms / 1e3)
+            / _peak("FP32_FLOP_PER_S"),
             "busy_ms_per_step": busy_ms,
             "idle_share": 1 - busy_ms / step_ms,
             "profiled_steps": profile_calls - 1, "top_device_ops": top,
@@ -1598,7 +1628,7 @@ def _train_line(name, cfg, full_layers, run, extra, checks,
     emit({"phase": phase, "model": name, "config": cfg.name,
           "layers": f"{cfg.num_layers} of {full_layers}",
           "lr": TRAIN_LR,
-          "fp32_peak_flop_per_s": FP32_FLOP_PER_S, **run, **extra,
+          "fp32_peak_flop_per_s": _peak("FP32_FLOP_PER_S"), **run, **extra,
           "checks": checks, "ok": all(checks.values())})
     return all(checks.values())
 
@@ -2485,8 +2515,9 @@ def _executor_ok(kind, ex, st, target, draft, n_requests):
 def _ring_phase(phase, kind, state, *, arenas=(False, True), quant=False,
                 local=("serve-db", None), tol=None):
     """The serve-db requests (phase 3's prompts, 3 slots, arrivals 0, 0,
-    3, 6, 32 new tokens; with ``quant`` serve-db-int8's: the int8 pair, 2
-    requests on 2 slots) on the 8-stage ring of ``kind``, on each arena
+    3, 6, SERVE_NEW_TOKENS new tokens; with ``quant`` serve-db-int8's:
+    the int8 pair, 2 requests on 2 slots) on the 8-stage ring of
+    ``kind``, on each arena
     of ``arenas``: tokens against phase 3's autoregressive tokens
     (near-tie rule); tokens and per-request GenStats against the local
     run ``local`` (its phase, and its arena or None for the same one);
@@ -3410,11 +3441,13 @@ def phase_cli(state):
 # phases family-*: the attention families at published widths
 # ---------------------------------------------------------------------------
 # (arch, target layers): Qwen 2.5 and 1.5 and Moonlight cut to 8 layers (a
-# layer per stage, as phase 3's target), Gemma-7b and Qwen-MoE whole, and
-# DeepSeek-V2 cut to its dense first layer and two MoE layers (15.9 GB
-# each)
+# layer per stage, as phase 3's target), Gemma-7b whole, Qwen-MoE cut to
+# 12 of its 24 (2 layers a stage on the ring, the last two stages
+# padding; whole until the window and dryrun phases took the run's time,
+# PERF.md section 4), and DeepSeek-V2 cut to its dense first layer and
+# two MoE layers (15.9 GB each)
 FAMILY_ARCHS = (("qwen2.5-32b", 8), ("qwen1.5-32b", 8), ("gemma-7b", 28),
-                ("moonshot-v1-16b-a3b", 8), ("qwen2-moe-a2.7b", 24),
+                ("moonshot-v1-16b-a3b", 8), ("qwen2-moe-a2.7b", 12),
                 ("deepseek-v2-236b", 3))
 # the modality families: InternVL2-26B's language model cut to 8 of its 48
 # layers (1.56 GB a layer in fp32; 48 would not fit the card), with a
@@ -3429,7 +3462,9 @@ FAMILY_NEW_TOKENS = 8
 FAMILY_DB_ARCHS = ("gemma-7b", "moonshot-v1-16b-a3b", "deepseek-v2-236b",
                    "qwen2-moe-a2.7b", "internvl2-26b", "whisper-base")
 FAMILY_DB_ARRIVALS = (0, 0, 3)
-FAMILY_DB_NEW_TOKENS = 8
+# 4 new tokens a family-db request (8 until the window and dryrun phases
+# took the run's time; about 35 timesteps a run, past DB_WINDOW)
+FAMILY_DB_NEW_TOKENS = 4
 # the families on the 8-stage ring, one mechanism each: GeGLU at hd 256
 # (4 layers a stage, the last stage all padding), QKV bias with MoE, the
 # 256-row prefix with the prefill lane off, the cross sub-layer (2 stages
@@ -3555,20 +3590,22 @@ def _family_max_len(cfg):
     return FAMILY_MAX_LEN + cfg.prefix_tokens
 
 
-def _autoregressive(target, prompts, new_tokens):
-    """Autoregressive tokens of each prompt and the wall ms per token."""
+def _autoregressive(target, prompts, new_tokens, max_len=None):
+    """Autoregressive tokens of each prompt and the wall ms per token
+    (``max_len`` cache rows, ``_family_max_len`` when None)."""
     import torch
     from repro_torch.core.baselines import generate_autoregressive
     t0 = time.perf_counter()
-    want = [generate_autoregressive(target, p, new_tokens,
-                                    max_len=_family_max_len(target.cfg))
-            for p in prompts]
+    want = [generate_autoregressive(
+        target, p, new_tokens,
+        max_len=max_len or _family_max_len(target.cfg)) for p in prompts]
     torch.cuda.synchronize()
     return want, 1e3 * (time.perf_counter() - t0) / (len(prompts)
                                                      * new_tokens)
 
 
-def _family_pipedec(target, draft, prompts, want, new_tokens, path):
+def _family_pipedec(target, draft, prompts, want, new_tokens, path,
+                    max_len=None):
     """PipeDec (8 stages, width 8, branch 4) through
     ServingEngine(mode="pipedec") on ``prompts``; tokens against ``want``
     (near-tie rule), launch counts against the calls.  Returns (ok, row)."""
@@ -3578,7 +3615,7 @@ def _family_pipedec(target, draft, prompts, want, new_tokens, path):
     engine = ServingEngine(target, draft, mode="pipedec",
                            pipedec=PipeDecConfig(n_stages=8, width=8,
                                                  branch=4),
-                           max_len=_family_max_len(target.cfg))
+                           max_len=max_len or _family_max_len(target.cfg))
     for uid, p in enumerate(prompts):
         engine.submit(Request(uid, p, new_tokens))
     zero_launches(target, draft)
@@ -3892,12 +3929,13 @@ def _device_window(steps, n):
 
 
 def _family_db_drive(kind, target, draft, requests, *, paged, pcfg,
-                     window=None):
+                     window=None, max_len=DB_MAX_LEN):
     """One SpecPipe-DB run of the family-db requests (DB_SLOTS slots) on
     the local executor (``kind`` "local") or the 8-stage ring's flush,
     overlapped or async executor, driven timestep by timestep through
     ``SpecPipeDBEngine.steps`` (what ``ServingEngine.run`` runs); launch
-    counts zeroed just before and read just after, exit logits recorded.
+    counts zeroed just before and read just after, exit logits recorded;
+    ``max_len`` cache rows a slot.
     ``window`` (start, count): those timesteps run under the profiler
     (``_device_window``) and the others are timed on the host clock, so
     ``ms_per_timestep`` leaves the traced ones out.  Returns a dict."""
@@ -3907,7 +3945,7 @@ def _family_db_drive(kind, target, draft, requests, *, paged, pcfg,
                                      OverlappedShardedExecutor, Request,
                                      ShardedPipelineExecutor,
                                      SpecPipeDBEngine)
-    kw = dict(slots=DB_SLOTS, max_len=DB_MAX_LEN,
+    kw = dict(slots=DB_SLOTS, max_len=max_len,
               tree_capacity=pcfg.tree_buffer_capacity,
               capacity=pcfg.capacity)
     if kind == "local":
@@ -3920,7 +3958,7 @@ def _family_db_drive(kind, target, draft, requests, *, paged, pcfg,
                else ShardedPipelineExecutor)
         ex = cls(target, draft, n_stages=pcfg.n_stages, paged=paged,
                  page=PAGE, **kw)
-    db = SpecPipeDBEngine(target, draft, pcfg, max_len=DB_MAX_LEN,
+    db = SpecPipeDBEngine(target, draft, pcfg, max_len=max_len,
                           max_slots=DB_SLOTS, executor=ex)
     for uid, prompt, new, arrival in requests:
         db.submit(Request(uid, prompt, new, arrival_t=arrival))
@@ -4250,6 +4288,540 @@ def phase_family_int8(state):
 
 
 # ---------------------------------------------------------------------------
+# phases window and dryrun: long_500k's window override, the dry run
+# ---------------------------------------------------------------------------
+# Qwen2.5-32B at published width cut to 8 of 64 layers: a 524,288-row
+# cache is 4.29 GB a layer (8 KV heads x 128 x 4 B x 2), 34.4 GB at 8,
+# beside about 22 GB of fp32 weights
+WINDOW_ARCH = "qwen2.5-32b"
+WINDOW_PROMPT_LENS = (4160, 4224)      # past the 4096-key window
+WINDOW_NEW_TOKENS = 8
+WINDOW_MAX_LEN = 4352                  # serving cache rows (272 pages)
+# the long decode: the kernel's (o, m, l) against the plain version on one
+# layer's cache, at phase 2's tolerances; the model's logits on the
+# 524,288-row cache against those on the window's 4096 rows held at their
+# positions (a paged cache whose table backs only the window's pages)
+TOL_WINDOW_LOGITS = 1e-4
+# the dry run: every arch x shape x mesh in a subprocess (its passes in a
+# process a CPU core), alone in phase dryrun beside nothing timed;
+# parameters and a 1 x 32,768 cache at bf16 on the card against the
+# specs' byte counts (the caching allocator rounds each block up to 512
+# bytes)
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_CARD_ARCHS = ("gemma-7b", "qwen2-moe-a2.7b")
+DRYRUN_CARD_ROWS = 32768
+ALLOC_ROUND = 512
+
+
+def _window_bound(cfg, rows, kv_rows, weights_bytes=0, layers=1):
+    """Least ms for one decode token: ``kv_rows`` attended K/V rows in
+    each of ``layers`` layers, plus ``weights_bytes`` read once, over the
+    HBM rate; and the fp32 K/V bytes a layer holds at ``rows``."""
+    row = cfg.num_kv_heads * cfg.resolved_head_dim * 4 * 2
+    return ((layers * kv_rows * row + weights_bytes)
+            / _peak("HBM_BYTES_PER_S") * 1e3, rows * row)
+
+
+def _long_decode_layer(cfg, rows, window):
+    """One layer's decode attention at ``rows`` keys (q [1, H, 1, hd] at
+    position rows - 1 over seeded K/V [1, KV, rows, hd]) with the window
+    and without: the kernel against its plain version (phase 2's
+    tolerances; the plain version's GQA expansion is 5 x 4.29 GB, so it
+    runs here, with no model on the card), kernel, plain and SDPA times
+    (SDPA with the same mask over the whole cache) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash
+    from repro_torch.kernels.flash import valid_mask
+    dev = torch.device("cuda")
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(40)
+    q = torch.randn(1, h, 1, hd, device=dev, generator=gen)
+    k = torch.randn(1, kvh, rows, hd, device=dev, generator=gen)
+    v = torch.randn(1, kvh, rows, hd, device=dev, generator=gen)
+    kv_len = torch.tensor([rows], dtype=torch.int32, device=dev)
+    qpos = torch.tensor([[rows - 1]], dtype=torch.int32, device=dev)
+    out, ok = [], True
+    for w in (window, 0):
+        def run(w=w):
+            return flash.flash_attention_lse(q, k, v, kv_len, qpos, window=w)
+
+        def plain(w=w):
+            return flash.flash_attention_lse_plain(
+                q, k, v, kv_len, qpos, scale=hd ** -0.5, window=w)
+        valid = valid_mask(1, 1, rows, kv_len, qpos, False, w, dev)
+
+        def library(mask=valid[:, None]):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        got = run()
+        torch.cuda.synchronize()
+        err_o, err_m, err_l = _errors(got, plain())
+        good = (err_o <= TOL_O_ABS and err_m <= TOL_M_REL
+                and err_l <= TOL_L_REL)
+        ok = ok and good
+        bound_ms, bound_by = _bound(valid, 1, h, kvh, 1, hd, 8)
+        k_ms, k_eager = cuda_ms(run, batches=11, per_batch=5)
+        out.append({"window": w, "rows": rows,
+                    "attended_rows": int(valid.sum()), "ok": good,
+                    "max_abs_err": err_o, "m_rel_err": err_m,
+                    "l_rel_err": err_l, "kernel_ms": k_ms,
+                    "kernel_eager_ms": k_eager,
+                    "plain_ms": _eager_ms(plain, warmup=1, batches=3,
+                                          per_batch=1),
+                    "library_ms": _eager_ms(library, warmup=1, batches=3,
+                                            per_batch=1),
+                    "library": "SDPA (enable_gqa) with the mask over the "
+                               "whole cache",
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+    del q, k, v
+    _free()
+    return ok, out
+
+
+def _window_paged(cache, window, page):
+    """Per layer, a paged copy of ``cache`` whose table backs only the
+    window's last pages (the rest is the null block): the window's rows
+    held at their positions in ``window`` rows of storage."""
+    import torch
+    from repro_torch.models import paging
+    rows = next(iter(cache[0].values())).shape[1]
+    n, w = rows // page, window // page
+    table = torch.zeros(1, n, dtype=torch.int32, device="cuda")
+    table[0, n - w:] = torch.arange(1, w + 1, dtype=torch.int32)
+    return [{name: paging.make_paged(buf, table, page)
+             for name, buf in layer.items()} for layer in cache]
+
+
+def _long_decode(target, rows, window):
+    """One decode token at row ``rows - 1`` of a seeded ``rows``-row cache
+    (no prefill) through the bundle's window override: launches (flash
+    once a layer), logits against the same decode on the window's rows
+    alone (``_window_paged``: paged flash once a layer), ms a step with
+    the override and without it (every row read; flash once a layer too),
+    each against its bound (weights read once, of an untied input
+    embedding only the token's row, plus the attended K/V rows)."""
+    import torch
+    from repro_torch.core.speculative import ModelBundle
+    cfg = target.cfg
+    torch.cuda.reset_peak_memory_stats()
+    cache = target.init_cache(1, rows)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for layer in cache:
+        for buf in layer.values():
+            buf.normal_(generator=gen)
+    small = _window_paged(cache, window, PAGE)
+    token = torch.tensor([7], device="cuda")
+    zero_launches(target)
+    dense, _ = target.decode(token, cache, rows - 1)
+    torch.cuda.synchronize()
+    launches, expect = read_launches(target)
+    dense_ok = (launches_ok(launches, expect, ("flash_attention_lse",))
+                and launches["flash_attention_lse"] == cfg.num_layers)
+    zero_launches(target)
+    paged, _ = target.decode(token, small, rows - 1)
+    torch.cuda.synchronize()
+    p_launches, _ = read_launches()
+    paged_ok = (p_launches["paged_flash_attention_lse"] == cfg.num_layers
+                and sum(p_launches.values()) == cfg.num_layers)
+    diff = float((dense - paged).abs().max())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    free = ModelBundle(target.model)
+    zero_launches(target)
+    free.decode(token, cache, rows - 1)
+    torch.cuda.synchronize()
+    f_launches, _ = read_launches(target)
+    free_ok = (f_launches["flash_attention_lse"] == cfg.num_layers
+               and sum(f_launches.values()) == cfg.num_layers)
+    # every weight read once, but of an untied input embedding only the
+    # token's row (a tied table is the LM head's, read whole)
+    table = target.model.embed.table
+    weights = sum(p.numel() * p.element_size()
+                  for p in target.model.parameters())
+    if not cfg.tie_embeddings:
+        weights -= (table.shape[0] - 1) * table.shape[1] * table.element_size()
+    win_bound, layer_bytes = _window_bound(cfg, rows, window, weights,
+                                           cfg.num_layers)
+    full_bound, _ = _window_bound(cfg, rows, rows, weights, cfg.num_layers)
+    win_layer, _ = _window_bound(cfg, rows, window)
+    full_layer, _ = _window_bound(cfg, rows, rows)
+    ms_win = _eager_ms(lambda: target.decode(token, cache, rows - 1),
+                       warmup=1, batches=5, per_batch=2)
+    ms_full = _eager_ms(lambda: free.decode(token, cache, rows - 1),
+                        warmup=1, batches=5, per_batch=2)
+    ok = (dense_ok and paged_ok and free_ok
+          and bool(torch.isfinite(dense).all()) and diff <= TOL_WINDOW_LOGITS)
+    del cache, small
+    _free()
+    return ok, {"ok": ok, "rows": rows, "position": rows - 1,
+                "window_override": window, "layers": cfg.num_layers,
+                "kv_gb": layer_bytes * cfg.num_layers / 1e9,
+                "weights_gb": weights / 1e9, "peak_mem_gb": peak_gb,
+                "launches": launches, "expected_launches": expect,
+                "paged_launches": p_launches,
+                "no_override_launches": f_launches,
+                "logits_vs_window_rows": {"max_abs_diff": diff,
+                                          "bit_equal": diff == 0.0,
+                                          "tol": TOL_WINDOW_LOGITS},
+                "ms_per_step": {"override": ms_win, "no_override": ms_full},
+                "bound_ms_per_step": {"override": win_bound,
+                                      "no_override": full_bound},
+                "bound_ms_per_layer_attention": {"override": win_layer,
+                                                 "no_override": full_layer}}
+
+
+def _window_tree_cases(cfg, window, t):
+    """The windowed tree-verify entry points at the serving shape (8
+    queries at a committed length of 4224 over a 4352-row cache, a T-row
+    tree buffer), dense and paged: against the plain version, with entry,
+    plain and SDPA times (one SDPA call over the committed rows and the
+    tree rows with the joint mask) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash, ops, paged, tree_block
+    from repro_torch.kernels.flash import valid_mask
+    dev = torch.device("cuda")
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    n, length, committed = 8, WINDOW_MAX_LEN, WINDOW_PROMPT_LENS[-1]
+    rows, ok = [], True
+    for paged_mode in (False, True):
+        gen = torch.Generator().manual_seed(50 + paged_mode)
+        q = torch.randn(1, n, h, hd, generator=gen).to(dev).transpose(1, 2)
+        mask = torch.rand(1, n, t, generator=gen) < 0.3
+        mask[:, :, 0] = True
+        mask = mask.to(dev)
+        kvl = torch.tensor([committed], dtype=torch.int32, device=dev)
+        qpos = (committed + torch.arange(n, device=dev) // 2).to(
+            torch.int32)[None]
+        dense = {half: {p: torch.randn(1, ln, kvh, hd, generator=gen).to(dev)
+                        for p in "kv"}
+                 for half, ln in (("past", length), ("tree", t))}
+        scale = hd ** -0.5
+        if paged_mode:
+            pools = {}
+            for half, horizon in (("past", [length]), ("tree", [t])):
+                views = {}
+                for p, x in dense[half].items():
+                    views[p], table = _paged_pool(
+                        torch, x, horizon,
+                        torch.Generator().manual_seed(len(half)))
+                pools[half] = (views, table)
+            (pk, ptab), (tk, ttab) = pools["past"], pools["tree"]
+
+            def entry():
+                return ops.paged_tree_attention(
+                    q, pk["k"], pk["v"], ptab, tk["k"], tk["v"], ttab, mask,
+                    kvl, qpos=qpos, window=window)
+
+            def plain():
+                past = paged.paged_flash_attention_lse_plain(
+                    q, pk["k"], pk["v"], ptab, kvl, qpos, scale=scale,
+                    window=window)
+                return paged.paged_tree_block_attention_plain(
+                    q, tk["k"], tk["v"], ttab, mask, scale=scale, past=past)
+        else:
+            pk = {p: x.transpose(1, 2) for p, x in dense["past"].items()}
+            tk = {p: x.transpose(1, 2) for p, x in dense["tree"].items()}
+
+            def entry():
+                return ops.tree_attention(q, pk["k"], pk["v"], tk["k"],
+                                          tk["v"], mask, kvl, qpos=qpos,
+                                          window=window)
+
+            def plain():
+                past = flash.flash_attention_lse_plain(
+                    q, pk["k"], pk["v"], kvl, qpos, scale=scale,
+                    window=window)
+                return tree_block.tree_block_attention_plain(
+                    q, tk["k"], tk["v"], mask, scale=scale, past=past)
+        past_valid = valid_mask(1, n, length, kvl, qpos, False, window, dev)
+        joint = torch.cat([past_valid, mask], -1)
+        lib_k = torch.cat([dense["past"]["k"], dense["tree"]["k"]],
+                          1).transpose(1, 2)
+        lib_v = torch.cat([dense["past"]["v"], dense["tree"]["v"]],
+                          1).transpose(1, 2)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, lib_k, lib_v, attn_mask=joint[:, None], enable_gqa=True)
+        got = entry()
+        torch.cuda.synchronize()
+        err = float((got - plain()).abs().max())
+        err_lib = float((got - library()).abs().max())
+        good = err <= TOL_O_ABS
+        ok = ok and good
+        bound_ms, bound_by = _bound(joint, 1, h, kvh, n, hd,
+                                    8 + 4 * n + n * t)
+        rows.append({"case": ("paged " if paged_mode else "")
+                     + f"windowed tree verify B=1 n={n} L={length} T={t}",
+                     "entry": "ops." + "paged_" * paged_mode
+                     + "tree_attention", "window": window,
+                     "committed": committed,
+                     "attended_past_rows": int(past_valid.any(1).sum()),
+                     "ok": good, "max_abs_err": err,
+                     "max_abs_err_vs_library": err_lib, "tol": TOL_O_ABS,
+                     "entry_ms": cuda_ms(entry)[0],
+                     "plain_ms": cuda_ms(plain)[0],
+                     "library_ms": cuda_ms(library)[0],
+                     "library": "SDPA (enable_gqa) over the committed and "
+                                "tree rows, the joint mask",
+                     "bound_ms": bound_ms, "bound_by": bound_by})
+    return ok, rows
+
+
+def _window_serving(target, draft, window):
+    """The two prompts past the window, 8 new tokens, both bundles with
+    the override: PipeDec (8 stages, width 8, branch 4) lossless against
+    autoregressive decoding; SpecPipe-DB on the dense and the paged arena
+    (paged equals dense bit for bit), on the 8-stage flush ring (equal to
+    the local dense run bit for bit) and on the overlapped ring (its
+    prefill lane off, tokens equal at a near-tie, logits within
+    TOL_ASYNC_LOGITS); launches as the calls imply.  Returns (ok, line)."""
+    import numpy as np
+    from repro_torch.core.pipedec import PipeDecConfig
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, target.cfg.vocab_size, size=n).astype(
+        np.int64) for n in WINDOW_PROMPT_LENS]
+    new = WINDOW_NEW_TOKENS
+    want, ar_ms = _autoregressive(target, prompts, new,
+                                  max_len=WINDOW_MAX_LEN)
+    ok, pipedec = _family_pipedec(target, draft, prompts, want, new,
+                                  FP32_PATH, max_len=WINDOW_MAX_LEN)
+    pcfg = PipeDecConfig(n_stages=8, width=8, branch=4)
+    requests = [(uid, p, new, 0) for uid, p in enumerate(prompts)]
+    runs, lines = {}, []
+    for kind, paged in (("local", False), ("local", True), ("flush", False),
+                        ("overlap", False)):
+        run = _family_db_drive(kind, target, draft, requests, paged=paged,
+                               pcfg=pcfg, max_len=WINDOW_MAX_LEN)
+        runs[kind, paged] = run
+        ex, st = run["ex"], run["stats"]
+        path = PAGED_PATH if paged else FP32_PATH
+        good = launches_ok(run["launches"], run["expected_launches"], path)
+        if kind != "local":
+            good = good and _executor_ok(kind, ex, st, target, draft,
+                                         len(requests))
+        for uid, p, _, _ in requests:
+            good = good and _lossless(target, p, run["results"][uid].tokens,
+                                      want[uid])[0]
+        vs = None
+        if (kind, paged) != ("local", False):
+            vs_ok, vs = _ring_vs(run, runs["local", False], target,
+                                 requests, bits=kind != "overlap")
+            good = good and vs_ok
+        if kind == "overlap":
+            good = good and ex.prefill_cap == 0
+        ok = ok and good
+        lines.append({"kind": kind, "arena": "paged" if paged else "dense",
+                      "ok": good, "prefill_cap": getattr(ex, "prefill_cap",
+                                                         None),
+                      "timesteps": st.timesteps,
+                      "ms_per_timestep": run["ms_per_timestep"],
+                      "run_s": run["run_s"], "peak_mem_gb": run["peak_gb"],
+                      "vs_local_dense": vs, "launches": run["launches"],
+                      "expected_launches": run["expected_launches"],
+                      "executor_calls": dict(ex.calls)})
+        run.pop("ex")
+    return ok, {"prompt_lens": list(WINDOW_PROMPT_LENS), "new_tokens": new,
+                "max_len": WINDOW_MAX_LEN,
+                "autoregressive_ms_per_token": ar_ms, "pipedec": pipedec,
+                "db": lines}
+
+
+def _kill_tree(pid):
+    """SIGKILL process ``pid`` and every descendant it has (the dry run's
+    worker pool), children first read from ``/proc``."""
+    def children(p):
+        try:
+            tasks = Path(f"/proc/{p}/task").iterdir()
+            kids = [int(c) for t in tasks
+                    for c in (t / "children").read_text().split()]
+        except OSError:
+            return []
+        return kids + [g for k in kids for g in children(k)]
+    for p in [pid] + children(pid):
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def phase_window(state):
+    """long_500k's window override (``launch.specs.window_override``: 4096
+    keys) at Qwen2.5-32B's published width, cut to 8 of 64 layers, fp32:
+    one layer's windowed decode attention at 524,288 rows against the
+    plain version and timed with and without the window; the 8-layer
+    target (and the seeded 2-layer draft) with the override on a seeded
+    524,288-row cache, one decode at its last row; the windowed
+    tree-verify entry points, dense and paged, at the serving shape; the
+    two prompts past the window served by PipeDec, SpecPipe-DB (dense,
+    paged), the flush ring and the overlapped ring (``_window_serving``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipedec import PipeDecConfig
+    from repro_torch.core.speculative import ModelBundle
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as tf
+    _free("target", "draft", "target_int8", "draft_int8", state=state)
+    t0 = time.perf_counter()
+    full = get_config(WINDOW_ARCH)
+    long = specs.SHAPES["long_500k"]
+    window = specs.window_override(full, long)
+    rows = long.seq_len
+    layer_ok, layer = _long_decode_layer(full, rows, window)
+    cfg, dcfg = _family_cfgs(WINDOW_ARCH)
+    target = ModelBundle(tf.init_model(cfg, seed=0, device="cuda"),
+                         window_override=window)
+    draft = ModelBundle(tf.init_model(dcfg, seed=1, device="cuda"),
+                        window_override=window)
+    decode_ok, decode = _long_decode(target, rows, window)
+    tree_ok, tree = _window_tree_cases(
+        cfg, window, PipeDecConfig(n_stages=8, width=8,
+                                   branch=4).tree_buffer_capacity)
+    serve_ok, serve = _window_serving(target, draft, window)
+    ok = (window == 4096 and layer_ok and decode_ok and tree_ok
+          and serve_ok)
+    emit({"phase": "window", "ok": ok, "target": cfg.name,
+          "draft": dcfg.name, "shape": dataclasses.asdict(long),
+          "window_override": window,
+          "reduced": {"target_layers": f"{cfg.num_layers} of "
+                      f"{full.num_layers}"},
+          "long_decode_layer": layer, "long_decode": decode,
+          "tree_verify": tree, "serving": serve,
+          "seconds": time.perf_counter() - t0})
+    del target, draft
+    _free()
+    if not ok:
+        raise AssertionError("window failed: see its line")
+
+
+def _card_bytes(make):
+    """``make()``'s tensors, built on the card, and {"tensors", "bytes"
+    they hold, "requested" (the caching allocator's requested bytes
+    grown), "allocated" (``torch.cuda.memory_allocated()`` grown), "low",
+    "high"}: the allocator rounds each request up to 512 bytes, and
+    leaves a block over 1 MiB unsplit when its segment's tail is at most
+    1 MiB, so it counts between the sum of the 512-byte roundings and that
+    with each block over 1 MiB rounded up to its 2 MiB segment."""
+    import torch
+
+    def requested():
+        return torch.cuda.memory_stats().get("requested_bytes.all.current")
+    _free()
+    before, req = torch.cuda.memory_allocated(), requested()
+    tensors = make()
+    torch.cuda.synchronize()
+    sizes = [t.numel() * t.element_size() for t in tensors]
+
+    def up(n, unit):
+        return -(-n // unit) * unit
+    return tensors, {
+        "tensors": len(tensors), "bytes": sum(sizes),
+        "requested": None if req is None else requested() - req,
+        "allocated": torch.cuda.memory_allocated() - before,
+        "low": sum(up(n, ALLOC_ROUND) for n in sizes),
+        "high": sum(up(n, ALLOC_ROUND) if n <= 1 << 20 else up(n, 2 << 20)
+                    for n in sizes)}
+
+
+def _card_specs_bytes():
+    """(ok, lines): for each DRYRUN_CARD_ARCHS model at bf16, its
+    parameters (``specs.param_specs`` built on the card) and a 1 x
+    DRYRUN_CARD_ROWS cache (``specs.cache_specs``), the specs' bytes (and
+    the sharding module's on a 1 x 1 host mesh) against the bytes the
+    tensors hold and what the allocator took (``_card_bytes``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding, specs
+    from repro_torch.launch.mesh import make_host_mesh
+    ok, card = True, []
+    mesh = make_host_mesh(1, 1)
+    for arch in DRYRUN_CARD_ARCHS:
+        cfg = get_config(arch)
+        model = specs.param_specs(cfg)
+        want_p = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+        shard_p = sharding.device_bytes(
+            sharding.param_leaves(model),
+            lambda p, s, cfg=cfg: sharding.param_pspec(p, s, cfg, mesh), mesh)
+        params, got_p = _card_bytes(
+            lambda: list(model.to_empty(device="cuda").parameters()))
+        cache_meta = specs.cache_specs(cfg, 1, DRYRUN_CARD_ROWS)
+        want_c = sum(t.numel() * t.element_size() for layer in cache_meta
+                     for t in layer.values())
+        cache, got_c = _card_bytes(
+            lambda: [torch.empty_like(t, device="cuda")
+                     for layer in cache_meta for t in layer.values()])
+        good = shard_p == want_p
+        lines = {}
+        for what, want, got in (("params", want_p, got_p),
+                                ("cache", want_c, got_c)):
+            good = (good and want == got["bytes"]
+                    and got["requested"] in (None, want)
+                    and got["low"] <= got["allocated"] <= got["high"])
+            lines[what] = {"specs_bytes": want, **got,
+                           "allocated_over_specs": got["allocated"] - want}
+        lines["params"]["host_mesh_bytes"] = shard_p
+        ok = ok and good
+        card.append({"arch": arch, "ok": good, "dtype": "bfloat16",
+                     "cache_shape": [1, DRYRUN_CARD_ROWS], **lines})
+        del model, params, cache
+        _free()
+    return ok, card
+
+
+def phase_dryrun(state):
+    """``python -m repro_torch.launch.dryrun --all --both-meshes`` in a
+    subprocess that this phase starts and waits for, so that no phase is
+    timed while its worker pool takes every host core: every arch x shape
+    x mesh row ok.  Meanwhile,
+    for Gemma-7b and Qwen-MoE at bf16, the parameters
+    (``specs.param_specs`` built on the card) and a 1 x 32,768 cache
+    (``specs.cache_specs``): the specs' byte counts (and the sharding
+    module's on a 1 x 1 host mesh) equal to the bytes the tensors hold and
+    the allocator's requested bytes, and ``torch.cuda.memory_allocated()``
+    within the allocator's rounding (``_card_specs_bytes``; bytes, no
+    time)."""
+    _free("target", "draft", "target_int8", "draft_int8", state=state)
+    out = ROOT / "build" / "dryrun_rows.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--out", str(out)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ok, card = _card_specs_bytes()
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            _kill_tree(proc.pid)
+            proc.communicate()
+    dry_s = time.perf_counter() - t0
+    rows = ([json.loads(line) for line in out.read_text().splitlines()]
+            if out.exists() else [])
+    tail = stdout.strip().splitlines()[-1:]
+    dry_ok = proc.returncode == 0 and len(rows) == 80
+    ok = ok and dry_ok
+    by_shape = collections.defaultdict(float)
+    for r in rows:
+        by_shape[r["shape"]] = max(by_shape[r["shape"]], r["pass_s"])
+    emit({"phase": "dryrun", "ok": ok,
+          "command": "python -m repro_torch.launch.dryrun --all "
+                     "--both-meshes", "cpu_count": os.cpu_count(),
+          "returncode": proc.returncode, "rows": len(rows),
+          "rows_ok": dry_ok, "seconds": dry_s, "last_line": tail,
+          "stderr_tail": stderr[-2000:] if proc.returncode else None,
+          "slowest_pass_s_by_shape": dict(by_shape),
+          "meshes": sorted({r["mesh"] for r in rows}), "card": card})
+    if not ok:
+        raise AssertionError("dryrun failed: see its line")
+
+
+# ---------------------------------------------------------------------------
 def _ptxas(text: str):
     """ptxas's report lines (registers, shared memory, spills) by mangled
     kernel name, from nvcc's ``-Xptxas -v`` output."""
@@ -4356,6 +4928,8 @@ def main() -> int:
                           for arch, _ in FAMILY_RECURRENT_ARCHS),
                         ("family-db", phase_family_db),
                         ("family-int8", phase_family_int8),
+                        ("window", phase_window),
+                        ("dryrun", phase_dryrun),
                         ("sharded-check", phase_sharded_check)):
         t0 = time.perf_counter()
         try:

@@ -75,12 +75,21 @@ class ModelBundle:
     ``encdec.encode``) is cross-attended by every step.  Its per-layer
     cross K/V are computed once, here; one bundle's prefix and encoder
     output serve every slot of a SpecPipe-DB arena.
+
+    ``window_override`` (-1: each layer's own window) is baked into every
+    step, as the reference's bundle bakes it into its jitted steps: >= 0
+    replaces every attention layer's window (0: none;
+    ``transformer.resolve_windows``), e.g. ``launch.specs.window_override``
+    of ``long_500k``.  Every engine drives the model through the bundle,
+    so each serves the override; the overlapped ring turns its prefill
+    lane off for such a bundle, as the reference does.
     """
 
     def __init__(self, model: Transformer, *, prefix_embeds=None,
-                 enc_out=None):
+                 enc_out=None, window_override: int = -1):
         self.model = model
         self.cfg = model.cfg
+        self.window_override = int(window_override)
         self.calls = collections.Counter()
         dev = model.device
         self.prefix_embeds = (None if prefix_embeds is None else
@@ -108,20 +117,23 @@ class ModelBundle:
         bump(self.calls, "prefill")
         return tf.prefill(self.model, tokens, cache,
                           prefix_embeds=self.prefix_embeds,
-                          cross_kv=self.cross_kv)
+                          cross_kv=self.cross_kv,
+                          window_override=self.window_override)
 
     def prefill_chunk(self, tokens, cache, chunk_start, *, on=None):
         """(logits [B,s,V], cache) for one prompt chunk per row at
         ``chunk_start`` (``transformer.prefill_chunk``)."""
         bump(self.calls, "prefill_chunk")
         return tf.prefill_chunk(self.model, tokens, cache, chunk_start,
-                                on=on, cross_kv=self.cross_kv)
+                                on=on, cross_kv=self.cross_kv,
+                                window_override=self.window_override)
 
     def decode(self, token, cache, cache_len):
         """(logits [B,V], cache) for one token per row at ``cache_len``."""
         bump(self.calls, "decode")
         return tf.decode_step(self.model, token, cache, cache_len,
-                              cross_kv=self.cross_kv)
+                              cross_kv=self.cross_kv,
+                              window_override=self.window_override)
 
     def tree_verify(self, node_tokens, node_positions, tree_mask, cache,
                     cache_len, tree_caches, tree_write_index):
@@ -129,7 +141,8 @@ class ModelBundle:
         bump(self.calls, "tree_verify")
         return tf.tree_verify_step(self.model, node_tokens, node_positions,
                                    tree_mask, cache, cache_len, tree_caches,
-                                   tree_write_index, cross_kv=self.cross_kv)
+                                   tree_write_index, cross_kv=self.cross_kv,
+                                   window_override=self.window_override)
 
     def tree_verify_rows(self, node_tokens, node_positions, tree_mask,
                          cache, cache_len, tree_caches, tree_write_index, *,
@@ -146,8 +159,19 @@ class ModelBundle:
             self.model, node_tokens, node_positions, tree_mask,
             tf.slice_cache_rows(cache, 0, bucket), cache_len,
             tf.slice_cache_rows(tree_caches, 0, bucket), tree_write_index,
-            cross_kv=self.cross_kv)
+            cross_kv=self.cross_kv, window_override=self.window_override)
         return logits, tree_caches
+
+    @torch.no_grad()
+    def forward(self, tokens):
+        """Logits [B,P+S,V] of every position of ``tokens`` [B,S] (the
+        reference bundle's jitted ``forward``), after this bundle's prefix
+        and against its encoder output, with its window override."""
+        bump(self.calls, "forward")
+        return tf.forward(self.model, tokens,
+                          prefix_embeds=self.prefix_embeds,
+                          enc_out=self.enc_out,
+                          window_override=self.window_override)
 
     def commit(self, cache, tree_caches, node_idx: int, model_len: int):
         """Move tree row ``node_idx`` into the model cache at ``model_len``."""
@@ -181,7 +205,7 @@ class ModelBundle:
         bundle builds to the int8 KV layout.  This bundle is left
         untouched.  The fp32 weights that stay fp32 (embeddings, norms,
         the LM head) are shared with it, not copied, and so is the vision
-        prefix.  Dense models only.
+        prefix; the window override carries over.  Dense models only.
         """
         cfg = self.cfg
         if cfg.quant:
@@ -204,7 +228,8 @@ class ModelBundle:
             else:
                 setattr(dst, leaf, w)
         return ModelBundle(qmodel, prefix_embeds=self.prefix_embeds,
-                           enc_out=self.enc_out)
+                           enc_out=self.enc_out,
+                           window_override=self.window_override)
 
 
 @torch.no_grad()

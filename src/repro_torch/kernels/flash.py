@@ -300,6 +300,8 @@ def flash_attention_lse(q, k, v, kv_len, qpos=None, *, k_scale=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     kv = rows_i32(kv_len, b, q.device)
     qp = qpos_rows(qpos, b, n, q.device)
+    # device dispatch is in two layers: the CPU here, meta tensors one
+    # layer up in ``ops._flash`` (the dry run); this wrapper refuses meta
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, kv, qp, scale=scale,
                                          window=window, causal=causal,

@@ -12,7 +12,10 @@ card with ``combine_lse``'s arithmetic; on the CPU the plain versions call
 The device of the tensors picks the implementation: CUDA tensors launch
 the kernels, CPU tensors take their plain versions (see ``flash``,
 ``tree_block`` and ``quant``).  There is no switch: a CUDA tensor always
-takes the kernel, the int8 ones included.
+takes the kernel, the int8 ones included.  The dense entry points also
+take meta tensors, for the dry run's shape-only pass (``launch.dryrun``):
+there the plain versions propagate shapes and compute nothing
+(``_flash``, ``_tree``); the kernel wrappers themselves refuse meta.
 
 int8 paths: per-row ``k_scale``/``v_scale`` side tensors mark K/V as
 symmetric int8 (the int8 serving cache) and select the kernels' int8
@@ -28,17 +31,44 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import torch
 
-from repro_torch.kernels.flash import flash_attention_lse, rows_i32
+from repro_torch.kernels.flash import (flash_attention_lse,
+                                       flash_attention_lse_plain, qpos_rows,
+                                       rows_i32)
 from repro_torch.kernels.paged import (paged_flash_attention_lse,
                                        paged_tree_block_attention)
 from repro_torch.kernels.quant import dequant_matmul
-from repro_torch.kernels.tree_block import combine_lse, tree_block_attention
+from repro_torch.kernels.tree_block import (combine_lse, tree_block_attention,
+                                            tree_block_attention_plain)
 
 __all__ = ["combine_lse", "tree_attention", "decode_attention",
            "prefill_attention", "chunk_attention", "full_attention",
            "paged_tree_attention",
            "paged_decode_attention", "dequant_matmul", "quant_matmul"]
+
+
+def _flash(q, k, v, kv_len, qpos=None, *, scale: Optional[float] = None,
+           **kw):
+    """``flash_attention_lse``, or on meta tensors its plain version."""
+    if q.device.type != "meta":
+        return flash_attention_lse(q, k, v, kv_len, qpos, scale=scale, **kw)
+    b, _, n, hd = q.shape
+    return flash_attention_lse_plain(
+        q, k, v, rows_i32(kv_len, b, q.device), qpos_rows(qpos, b, n,
+                                                          q.device),
+        scale=hd ** -0.5 if scale is None else scale, **kw)
+
+
+def _tree(q, k, v, tree_mask, *, scale: Optional[float] = None, **kw):
+    """``tree_block_attention``, or on meta tensors its plain version."""
+    if q.device.type != "meta":
+        return tree_block_attention(q, k, v, tree_mask, scale=scale, **kw)
+    b, _, n, hd = q.shape
+    mask = tree_mask if tree_mask.dim() == 3 else tree_mask[None]
+    return tree_block_attention_plain(
+        q, k, v, mask.to(torch.bool).expand(b, n, k.shape[2]),
+        scale=hd ** -0.5 if scale is None else scale, **kw)
 
 
 def tree_attention(q, k_past, v_past, k_tree, v_tree, tree_mask, past_len,
@@ -52,12 +82,10 @@ def tree_attention(q, k_past, v_past, k_tree, v_tree, tree_mask, past_len,
     launches).  q [B,H,n,hd]; k/v_past [B,KV,L,hd]; k/v_tree [B,KV,T,hd];
     int8 caches pass ``k_scale``/``v_scale`` [B,KV,L] and
     ``kt_scale``/``vt_scale`` [B,KV,T].  Returns [B,H,n,hd]."""
-    past = flash_attention_lse(q, k_past, v_past, past_len, qpos,
-                               k_scale=k_scale, v_scale=v_scale,
-                               scale=scale, window=window)
-    return tree_block_attention(q, k_tree, v_tree, tree_mask,
-                                k_scale=kt_scale, v_scale=vt_scale,
-                                scale=scale, past=past).to(q.dtype)
+    past = _flash(q, k_past, v_past, past_len, qpos, k_scale=k_scale,
+                  v_scale=v_scale, scale=scale, window=window)
+    return _tree(q, k_tree, v_tree, tree_mask, k_scale=kt_scale,
+                 v_scale=vt_scale, scale=scale, past=past).to(q.dtype)
 
 
 def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None,
@@ -69,9 +97,8 @@ def decode_attention(q, k, v, kv_len, *, scale: Optional[float] = None,
     b, _, n, _ = q.shape
     kv = rows_i32(kv_len, b, q.device)
     qpos = (kv - 1)[:, None].expand(b, n)
-    o, _, _ = flash_attention_lse(q, k, v, kv, qpos, k_scale=k_scale,
-                                  v_scale=v_scale, scale=scale,
-                                  window=window)
+    o, _, _ = _flash(q, k, v, kv, qpos, k_scale=k_scale, v_scale=v_scale,
+                     scale=scale, window=window)
     return o.to(q.dtype)
 
 
@@ -116,9 +143,9 @@ def prefill_attention(q, k, v, positions, *, scale: Optional[float] = None,
     """Causal attention for prefill: q [B,H,S,hd], k/v [B,KV,S,hd] (int8
     with ``k_scale``/``v_scale`` [B,KV,S] when given), positions [S] or
     [B,S].  Returns [B,H,S,hd]."""
-    o, _, _ = flash_attention_lse(q, k, v, k.shape[2], positions,
-                                  k_scale=k_scale, v_scale=v_scale,
-                                  scale=scale, window=window, causal=True)
+    o, _, _ = _flash(q, k, v, k.shape[2], positions, k_scale=k_scale,
+                     v_scale=v_scale, scale=scale, window=window,
+                     causal=True)
     return o.to(q.dtype)
 
 
@@ -132,9 +159,9 @@ def chunk_attention(q, k, v, kv_len, positions, *,
     before its position.  A query's chunks are those a one-shot causal
     prefill of the prompt gives it (``flash.chunk_plan``: the bound is
     its own position).  Returns [B,H,n,hd]."""
-    o, _, _ = flash_attention_lse(q, k, v, kv_len, positions,
-                                  k_scale=k_scale, v_scale=v_scale,
-                                  scale=scale, window=window, causal=True)
+    o, _, _ = _flash(q, k, v, kv_len, positions, k_scale=k_scale,
+                     v_scale=v_scale, scale=scale, window=window,
+                     causal=True)
     return o.to(q.dtype)
 
 
@@ -146,7 +173,7 @@ def full_attention(q, k, v, *, scale: Optional[float] = None):
     b = q.shape[0]
     if k.shape[0] != b:
         k, v = k.expand(b, *k.shape[1:]), v.expand(b, *v.shape[1:])
-    o, _, _ = flash_attention_lse(q, k, v, k.shape[2], None, scale=scale)
+    o, _, _ = _flash(q, k, v, k.shape[2], None, scale=scale)
     return o.to(q.dtype)
 
 

@@ -223,6 +223,8 @@ def tree_block_attention(q, k_tree, v_tree, tree_mask, *, k_scale=None,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     mask = tree_mask if tree_mask.dim() == 3 else tree_mask[None]
     mask = mask.to(device=q.device, dtype=torch.bool).expand(b, n, t)
+    # device dispatch is in two layers: the CPU here, meta tensors one
+    # layer up in ``ops._tree`` (the dry run); this wrapper refuses meta
     if q.device.type == "cpu":
         return tree_block_attention_plain(q, k_tree, v_tree, mask,
                                           scale=scale, k_scale=k_scale,

@@ -216,7 +216,8 @@ def hop(ring: List[RingEntry]) -> List[RingEntry]:
     return [RingEntry.dead(len(ring[0].valid))] + ring[:-1]
 
 
-def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig):
+def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig, *,
+                   window_override: int = -1):
     """The per-stage compute, defined once for every schedule.
 
     Returns ``(stage_apply, stage_ctrl, stage_prefill)``:
@@ -243,13 +244,16 @@ def make_stage_fns(cfg: ModelConfig, pcfg: PipelineConfig):
         no cross sub-layer input.
 
     Every layer the ring accepts is a global attention layer, so
-    ``cfg.sliding_window`` is each layer's window (``tf.layer_windows``).
-    The reference's stage functions leave out an encoder-decoder's cross
-    sub-layer (``_apply_unit`` gets no encoder K/V); the port's run it, so
-    the ring computes what the local engines compute.
+    ``cfg.sliding_window`` is each layer's window (``tf.layer_windows``),
+    or ``window_override`` when it is >= 0 (the bundle's,
+    ``tf.resolve_windows``).  The reference's stage functions leave out an
+    encoder-decoder's cross sub-layer (``_apply_unit`` gets no encoder
+    K/V) and build their layers' context with no window override, so its
+    ring verifies with the config's window whatever its bundle holds; the
+    port's run both, so the ring computes what the local engines compute.
     """
     check_ring_supported(cfg)
-    window = cfg.sliding_window
+    window = tf.resolve_windows(cfg, window_override)[0]
 
     def _cross_fn(cross):
         if cross is None:
@@ -391,7 +395,7 @@ def stage_cross(cross_kv, n_stages: int) -> list:
 
 def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
                       calls: Optional[collections.Counter] = None,
-                      cross_kv=None) -> Callable:
+                      cross_kv=None, window_override: int = -1) -> Callable:
     """The lockstep tick: ``tick(stage_layers, stage_valid, model_kv,
     tree_kv, ring, entry=None, kill=None, ctrl=None, pentry=None) ->
     (ring, exit)``, caches updated in place.
@@ -423,8 +427,10 @@ def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
     chunk exits) and "p_valid".  A stage that holds only padding layers
     is skipped: it passes everything through.  ``cross_kv``: an
     encoder-decoder's per-layer cross K/V, attended by every stage's
-    layers (``stage_cross``)."""
-    stage_apply, stage_ctrl, stage_prefill = make_stage_fns(cfg, pcfg)
+    layers (``stage_cross``); ``window_override``: the bundle's
+    (``make_stage_fns``)."""
+    stage_apply, stage_ctrl, stage_prefill = make_stage_fns(
+        cfg, pcfg, window_override=window_override)
     n_stages = pcfg.n_stages
     crosses = stage_cross(cross_kv, n_stages)
     calls = calls if calls is not None else collections.Counter()
@@ -525,7 +531,7 @@ def make_pipedec_tick(cfg: ModelConfig, pcfg: PipelineConfig, *,
 
 def make_pipeline_verify(cfg: ModelConfig, pcfg: PipelineConfig, *,
                          calls: Optional[collections.Counter] = None,
-                         cross_kv=None):
+                         cross_kv=None, window_override: int = -1):
     """The flush schedule: ingest a batched entry layer into stage 0 of a
     fresh ring and run exactly ``n_stages`` ticks, so that it crosses
     every stage and exits (stage 0 ingests and processes on the same
@@ -535,7 +541,8 @@ def make_pipeline_verify(cfg: ModelConfig, pcfg: PipelineConfig, *,
     Returns ``verify(stage_layers, stage_valid, model_kv, tree_kv, entry)
     -> (exit_act [B, w, d], exit_valid [B])``; tree caches are written in
     place."""
-    tick = make_pipedec_tick(cfg, pcfg, calls=calls, cross_kv=cross_kv)
+    tick = make_pipedec_tick(cfg, pcfg, calls=calls, cross_kv=cross_kv,
+                             window_override=window_override)
 
     def verify(stage_layers, stage_valid, model_kv, tree_kv, entry):
         ring = init_ring(pcfg, len(entry["valid"]))

@@ -15,8 +15,12 @@ Top-k is a stable descending sort, so among router probabilities that tie
 the lower expert id comes first, as ``jax.lax.top_k`` orders them.  The
 router's load-balance term (``aux``) is returned beside the output.
 
-The reference's mesh knobs (``set_dispatch``, the sharding constraints)
-have no counterpart on one card.
+The reference's mesh knobs (``set_dispatch``: shard-local group sorts and
+the sharding constraints of its buffers) have no counterpart on one card;
+``launch.sharding`` only describes how the expert weights would be cut
+over the reference's production mesh.  Expert counts are a fixed-size
+``index_add_`` (``expert_counts``), so a model on the meta device (the
+dry run's) routes too.
 """
 from __future__ import annotations
 
@@ -67,6 +71,15 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """[e] int64: how many of ``ids`` go to each expert (what
+    ``torch.bincount(ids, minlength=e)`` gives for ids below e, but of a
+    size known without reading ``ids``, so it also runs on meta)."""
+    flat = ids.reshape(-1)
+    return torch.zeros(e, dtype=torch.long, device=ids.device).index_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.long))
+
+
 def route(p: MoE, cfg: ModelConfig, x_flat) -> Tuple[torch.Tensor, ...]:
     """(expert ids [T,k], gates [T,k] renormalised over the k, aux) for
     tokens ``x_flat`` [T,d]: softmax router probabilities in fp32, top-k
@@ -79,7 +92,7 @@ def route(p: MoE, cfg: ModelConfig, x_flat) -> Tuple[torch.Tensor, ...]:
     gate, idx = gate[:, :k], idx[:, :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     t = x_flat.shape[0]
-    density = torch.bincount(idx.reshape(-1), minlength=e).float() / (t * k)
+    density = expert_counts(idx, e).float() / (t * k)
     aux = e * torch.sum(density * probs.mean(0))
     return idx, gate.to(x_flat.dtype), aux
 
@@ -101,7 +114,7 @@ def moe_forward(p: MoE, cfg: ModelConfig, x) -> Tuple[torch.Tensor, ...]:
     se = fe[order]
     st = torch.arange(t, device=dev).repeat_interleave(k)[order]
     sg = gate.reshape(-1)[order]
-    counts = torch.bincount(fe, minlength=e)
+    counts = expert_counts(fe, e)
     starts = torch.cumsum(counts, 0) - counts
     cap = capacity(t, cfg)
     pos_in_e = torch.arange(t * k, device=dev) - starts[se]

@@ -13,6 +13,14 @@ mixer with no feed-forward block, ``rglru`` layers the RG-LRU mixer and an
 MLP; attention layers have an MLP or a MoE block
 (``config.layer_is_moe``).
 
+Every entry point below (``forward``, ``loss_fn``, ``prefill``,
+``prefill_chunk``, ``decode_step``, ``tree_verify_step``) takes the
+reference's ``window_override``: -1 (the default) keeps each layer's
+window (``Transformer.windows``, the config's), a value >= 0 replaces
+every attention layer's, ``local`` ones included, for that call (0: no
+window; ``resolve_windows``).  ``launch.specs.window_override`` gives 4096
+for the full-attention families at ``long_500k``.
+
 Modality inputs, as in the reference: ``prefix_embeds`` [1|B, P, d] (a
 VLM's vision prefix, from the stub frontend) are put before the prompt's
 embeddings by ``forward``, ``prefill`` and ``loss_fn``, so the prompt's
@@ -143,6 +151,20 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
     reference's ``_window``)."""
     return [cfg.rglru.window if kind == "local" else cfg.sliding_window
             for kind in layer_kinds(cfg)]
+
+
+def resolve_windows(cfg: ModelConfig,
+                    window_override: int = -1) -> List[int]:
+    """Each layer's window for one call: ``window_override`` (0: none) for
+    every attention layer, ``local`` ones included, when it is >= 0, else
+    the config's (``layer_windows``), as the reference's ``_window`` reads
+    ``Ctx.window_override``.  A recurrent layer has no attention and
+    ignores it.  The model entry points and the ring's stage functions
+    (``launch.pipeline.make_stage_fns``) both take their windows here."""
+    windows = layer_windows(cfg)
+    if window_override < 0:
+        return windows
+    return [int(window_override)] * len(windows)
 
 
 def is_recurrent(cfg: ModelConfig) -> bool:
@@ -298,6 +320,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return out
 
 
+def cast_cache(cache: List[dict], dtype: torch.dtype) -> List[dict]:
+    """The cache with its floating leaves in ``dtype`` (the reference's
+    ``init_cache(dtype=)``), except those it keeps in fp32 whatever the
+    dtype: RG-LRU's state ``h`` and an int8 cache's scales."""
+    return [{name: (buf.to(dtype) if buf.is_floating_point()
+                    and name != "h" and not name.endswith("scale")
+                    else buf)
+             for name, buf in layer.items()} for layer in cache]
+
+
 def init_tree_caches(cfg: ModelConfig, batch: int, capacity: int, *,
                      device: DeviceLike = None) -> List[Optional[dict]]:
     """Tree (level-2) KV caches: ``capacity`` rows per attention layer,
@@ -341,8 +373,10 @@ def encode_cross_kv(model: Transformer, enc_out) -> list:
     """Per decoder layer, the cross-attention (k, v) [1|B,T,KV,hd] of the
     encoder output ``enc_out`` [1|B,T,d] (``attention.encode_cross_kv``),
     to be computed once per encoder output and passed to the serving step
-    functions as ``cross_kv``."""
-    enc = wide(torch.as_tensor(enc_out, device=model.device))
+    functions as ``cross_kv``; ``enc_out`` is taken in the weights'
+    dtype."""
+    enc = torch.as_tensor(enc_out, device=model.device).to(
+        model.embed.table.dtype)
     return [attn.encode_cross_kv(layer.cross, model.cfg, enc)
             for layer in model.layers]
 
@@ -449,18 +483,19 @@ def _logits(model: Transformer, x):
 
 
 def _hidden(model: Transformer, tokens, *, prefix_embeds=None,
-            enc_out=None, remat: bool = False):
+            enc_out=None, remat: bool = False, window_override: int = -1):
     """Training forward up to the final norm: (hidden states [B,P+S,d],
     the summed MoE router term: 0 without MoE layers) under autograd,
     attention in plain PyTorch (``attn.attn_train``)."""
     cfg = model.cfg
+    windows = resolve_windows(model.cfg, window_override)
     x = _embed_inputs(model, _tokens(model, tokens), prefix_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=model.device).expand(b, s)
 
     def attend(i, mixer, h):
         return attn.attn_train(mixer, cfg, h, positions,
-                               window=model.windows[i])
+                               window=windows[i])
 
     aux = []
     x = _run_layers(model, x, attend, remat=remat, aux=aux,
@@ -474,14 +509,17 @@ def _hidden(model: Transformer, tokens, *, prefix_embeds=None,
 
 
 def forward(model: Transformer, tokens, *, prefix_embeds=None,
-            enc_out=None, remat: bool = False, with_aux: bool = False):
+            enc_out=None, remat: bool = False, with_aux: bool = False,
+            window_override: int = -1):
     """Training forward: logits [B,P+S,V] of every position, the
     ``prefix_embeds`` rows first when given, the decoder cross-attending
     ``enc_out`` when given; with ``with_aux``, (logits, the summed MoE
     router term), as the reference's ``forward`` returns (0 without MoE
-    layers)."""
+    layers).  ``window_override`` >= 0 replaces every attention layer's
+    window (``resolve_windows``), here and in every entry point below."""
     hidden, aux = _hidden(model, tokens, prefix_embeds=prefix_embeds,
-                          enc_out=enc_out, remat=remat)
+                          enc_out=enc_out, remat=remat,
+                          window_override=window_override)
     logits = unembed(_head(model), hidden)
     return (logits, aux) if with_aux else logits
 
@@ -515,13 +553,15 @@ def chunked_ce(table, hidden, labels, *, chunk: int = 256):
 
 
 def loss_fn(model: Transformer, tokens, labels, *, prefix_embeds=None,
-            enc_out=None, remat: bool = False, ce_chunk: int = 256):
+            enc_out=None, remat: bool = False, ce_chunk: int = 256,
+            window_override: int = -1):
     """Mean next-token cross-entropy of ``labels`` [B,S] (-1: ignored)
     given ``tokens`` [B,S] (the prefix rows' hidden states dropped), plus
     ``cfg.moe.router_aux_weight`` times the summed router term for a MoE
     model, as in the reference; under autograd."""
     hidden, aux = _hidden(model, tokens, prefix_embeds=prefix_embeds,
-                          enc_out=enc_out, remat=remat)
+                          enc_out=enc_out, remat=remat,
+                          window_override=window_override)
     if prefix_embeds is not None:
         hidden = hidden[:, prefix_embeds.shape[1]:]
     ce = chunked_ce(_head(model), hidden, _tokens(model, labels),
@@ -533,7 +573,7 @@ def loss_fn(model: Transformer, tokens, labels, *, prefix_embeds=None,
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens, cache, *, prefix_embeds=None,
-            cross_kv=None):
+            cross_kv=None, window_override: int = -1):
     """Fill the model cache from position 0 with ``tokens`` [B,S], after
     the ``prefix_embeds`` rows [0, P) when given; returns (last-position
     logits [B,V], cache)."""
@@ -541,10 +581,11 @@ def prefill(model: Transformer, tokens, cache, *, prefix_embeds=None,
     x = _embed_inputs(model, _tokens(model, tokens), prefix_embeds)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=model.device).expand(b, s)
+    windows = resolve_windows(model.cfg, window_override)
 
     def attend(i, mixer, h):
         y, _ = attn.attn_forward(mixer, cfg, h, positions, cache=cache[i],
-                                 window=model.windows[i])
+                                 window=windows[i])
         return y
 
     x = _run_layers(model, x, attend, cross=_cross(model, cross_kv),
@@ -554,7 +595,7 @@ def prefill(model: Transformer, tokens, cache, *, prefix_embeds=None,
 
 @torch.no_grad()
 def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
-                  on=None, cross_kv=None):
+                  on=None, cross_kv=None, window_override: int = -1):
     """Fill the model cache with one chunk of a longer prompt: row b's
     ``tokens[b]`` [B,s] sit at positions [chunk_start[b], chunk_start[b] +
     s) (host ints; one broadcasts).  Chunks are fed in order, each
@@ -571,11 +612,11 @@ def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
     positions = (torch.as_tensor(start, device=model.device)[:, None]
                  + torch.arange(s, device=model.device))
     x = embed(model.embed.table, tokens)
+    windows = resolve_windows(model.cfg, window_override)
 
     def attend(i, mixer, h):
         y, _ = attn.attn_prefill_chunk(mixer, cfg, h, positions, cache[i],
-                                       start, on=on,
-                                       window=model.windows[i])
+                                       start, on=on, window=windows[i])
         return y
 
     x = _run_layers(model, x, attend,
@@ -585,7 +626,7 @@ def prefill_chunk(model: Transformer, tokens, cache, chunk_start, *,
 
 @torch.no_grad()
 def decode_step(model: Transformer, token, cache, cache_len, *,
-                cross_kv=None):
+                cross_kv=None, window_override: int = -1):
     """token [B] -> (logits [B,V], cache); row b's token sits at position
     ``cache_len[b]`` (an int broadcasts) and is written there; recurrent
     layers advance their state one step, in place."""
@@ -596,10 +637,11 @@ def decode_step(model: Transformer, token, cache, cache_len, *,
     position = torch.as_tensor(rows, device=model.device)
     kv_len = (position + 1).to(torch.int32)
     x = embed(model.embed.table, token[:, None])
+    windows = resolve_windows(model.cfg, window_override)
 
     def attend(i, mixer, h):
         y, _ = attn.attn_decode(mixer, cfg, h, position, cache[i], rows,
-                                kv_len, window=model.windows[i])
+                                kv_len, window=windows[i])
         return y
 
     x = _run_layers(model, x, attend, cross=_cross(model, cross_kv),
@@ -610,7 +652,8 @@ def decode_step(model: Transformer, token, cache, cache_len, *,
 @torch.no_grad()
 def tree_verify_step(model: Transformer, node_tokens, node_positions,
                      tree_mask, cache, cache_len, tree_caches,
-                     tree_write_index, *, cross_kv=None):
+                     tree_write_index, *, cross_kv=None,
+                     window_override: int = -1):
     """Verify one tree layer (PipeDec 3.4.2).
 
     node_tokens [B,n] token ids of the new layer (padded); node_positions
@@ -644,13 +687,14 @@ def tree_verify_step(model: Transformer, node_tokens, node_positions,
     write_rows = attn.write_index(next(iter(tree_caches[0].values())),
                                   write_at, b, n)
     x = embed(model.embed.table, node_tokens)
+    windows = resolve_windows(model.cfg, window_override)
 
     def attend(i, mixer, h):
         y, _ = attn.attn_tree_verify(
             mixer, cfg, h, positions, model_cache=cache[i],
             model_len=model_len, tree_cache=tree_caches[i],
             tree_write_index=write_at, tree_mask=mask,
-            window=model.windows[i], tree_write_rows=write_rows,
+            window=windows[i], tree_write_rows=write_rows,
             empty=empty)
         return y
 

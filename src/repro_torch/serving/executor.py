@@ -328,9 +328,10 @@ class ShardedPipelineExecutor(PipelineExecutor):
             self.d_cache = _paginate_full(self.d_cache, mt, self.page)
             self.d_tree = _paginate_full(self.d_tree, tt, self.page)
         self.arena = SlotPool(slots)
-        self._verify = pl.make_pipeline_verify(target.cfg, self.plcfg,
-                                               calls=self.calls,
-                                               cross_kv=target.cross_kv)
+        self._verify = pl.make_pipeline_verify(
+            target.cfg, self.plcfg, calls=self.calls,
+            cross_kv=target.cross_kv,
+            window_override=target.window_override)
 
     def _draft_cache(self):
         return self.d_cache
@@ -516,10 +517,11 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
         (``PREFILL_LANE``, at most ``max_len``) on consecutive ticks, the
         draft's chunk prefill beside each, so admission makes no separate
         prefill dispatch; it returns a ``Deferred`` resolved when the last
-        chunk exits.  A bundle with a vision prefix or an encoder output
-        turns the lane off (``prefill_cap`` 0, ``begin_prefill`` returns
-        None), as the reference does: the lane embeds prompt tokens only,
-        so admission goes through the parent's separate ``prefill``.
+        chunk exits.  A bundle with a vision prefix, an encoder output or
+        a window override turns the lane off (``prefill_cap`` 0,
+        ``begin_prefill`` returns None), as the reference does: the lane
+        embeds prompt tokens only, so admission goes through the parent's
+        separate ``prefill``.
       * ``kill(slot)`` invalidates the slot's in-flight layers and bumps
         its tree version; ``drain()`` ticks dead entries until every
         outstanding future has resolved.
@@ -541,15 +543,17 @@ class OverlappedShardedExecutor(ShardedPipelineExecutor):
                          n_stages=n_stages, paged=paged, page=page)
         self.prefill_cap = min(PREFILL_LANE, max_len)
         if any(b.prefix_embeds is not None or b.enc_out is not None
-               for b in (target, draft)):
-            # the lane embeds prompt tokens only: a prefix or an encoder
-            # output is baked in by the parent's separate prefill, as the
-            # reference turns its lane off for such bundles
+               or b.window_override >= 0 for b in (target, draft)):
+            # the lane embeds prompt tokens only: a prefix, an encoder
+            # output or a window override is baked in by the parent's
+            # separate prefill, as the reference turns its lane off for
+            # such bundles
             self.prefill_cap = 0
         self._ring = pl.init_ring(self.plcfg, slots)
-        self._tick = pl.make_pipedec_tick(target.cfg, self.plcfg,
-                                          calls=self.calls,
-                                          cross_kv=target.cross_kv)
+        self._tick = pl.make_pipedec_tick(
+            target.cfg, self.plcfg, calls=self.calls,
+            cross_kv=target.cross_kv,
+            window_override=target.window_override)
         # per-slot tree versions and outstanding futures
         self._versions = np.zeros((slots,), np.int64)
         self._handles = [collections.deque() for _ in range(slots)]
@@ -984,8 +988,8 @@ class AsyncPipelineExecutor(PipelineExecutor):
         self._tkv = pl.split_stages(self.t_tree, self.n_stages)
         self.d_cache = draft.init_cache(slots, max_len)
         self.d_tree = draft.init_tree_caches(slots, tree_capacity)
-        self._apply, self._ctrl, _ = pl.make_stage_fns(target.cfg,
-                                                       self.plcfg)
+        self._apply, self._ctrl, _ = pl.make_stage_fns(
+            target.cfg, self.plcfg, window_override=target.window_override)
         self._cross = pl.stage_cross(target.cross_kv, self.n_stages)
         self._views = [{} for _ in range(self.n_stages)]
         cuda = self.device.type == "cuda"
