@@ -651,6 +651,11 @@ def kernel_cases(torch, dev):
         flash_case("flash hd256 window/prefill recurrentgemma n=64", 1, 16,
                    1, 64, 256, RG_LONG_PROMPT, [RG_LONG_PROMPT],
                    causal=True, window=RG_WINDOW, q0=[RG_WINDOW]),
+        # decode_32k's span at batch 8 (Qwen2.5-32B's widths: 40 heads over
+        # 8 KV heads of 128): 512 chunks in 8 groups, rows of 32,768 keys
+        # and shorter; a grid row of max(G, cap) CTAs
+        flash_case("flash/decode_32k span B=8", len(DECODE_32K_KV_LEN), 40, 8,
+                   1, 128, DECODE_32K_ROWS, list(DECODE_32K_KV_LEN)),
     ]
 
 
@@ -696,6 +701,21 @@ DQ_CASES = (
     ("dq/draft w_gate M=8", 8, 2048, 8192, False),
     ("dq/draft w_down M=8", 8, 8192, 2048, False),
 )
+
+
+def _flash_plan(torch, q, k, int8):
+    """What a flash launch of these shapes takes: its CTAs (the kernel
+    library's own grid rule), its scratch bytes (partials and counters),
+    and the peak of ``torch.cuda.max_memory_allocated`` so far in GB."""
+    from repro_torch.kernels import flash
+    b, h, n, hd = q.shape
+    kvh, length = k.shape[1], k.shape[2]
+    x, y, z = flash.launch_grid(b, h, kvh, n, length, hd, int8=int8)
+    floats, ints = flash.scratch_sizes(b, kvh, n, h // kvh, length, hd)
+    return {"ctas": x * y * z, "grid": [x, y, z],
+            "scratch_bytes": 4 * (floats + ints),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9}
 
 
 def _summarise(summary, row_name, err, main, case, timing):
@@ -745,8 +765,11 @@ def phase_kernels(state):
                     a["q"], a["k"], a["v"], a["mask"], scale=scale, **qkw)
             valid = a["mask"]
             extra = b * n * length
+        torch.cuda.reset_peak_memory_stats()
         got = run()
         torch.cuda.synchronize()
+        plan = (_flash_plan(torch, q, k, int8)
+                if row_name.startswith("flash") else {})
         err_o, err_m, err_l = _errors(got, plain())
         ok = err_o <= TOL_O_ABS and err_m <= TOL_M_REL and err_l <= TOL_L_REL
         # the library yardstick: one SDPA call over the same mask, on the
@@ -774,7 +797,8 @@ def phase_kernels(state):
                "library": "SDPA" + (" on a dequantized fp32 copy"
                                     if int8 else ""),
                "bound_ms": bound_ms, "bound_by": bound_by, "eager_ms": {
-                   "kernel": k_eager, "plain": p_eager, "library": lib_eager}}
+                   "kernel": k_eager, "plain": p_eager, "library": lib_eager},
+               **plan}
         emit(row)
         if not ok:
             bad.append(name)
@@ -4294,6 +4318,10 @@ def phase_family_int8(state):
 # cache is 4.29 GB a layer (8 KV heads x 128 x 4 B x 2), 34.4 GB at 8,
 # beside about 22 GB of fp32 weights
 WINDOW_ARCH = "qwen2.5-32b"
+# decode_32k's span at batch 8 (the shape's 32,768 rows; a batch of rows
+# at 32,768 keys and shorter)
+DECODE_32K_ROWS = 32768
+DECODE_32K_KV_LEN = (32768, 32768, 30720, 28000, 24576, 20000, 16384, 8192)
 WINDOW_PROMPT_LENS = (4160, 4224)      # past the 4096-key window
 WINDOW_NEW_TOKENS = 8
 WINDOW_MAX_LEN = 4352                  # serving cache rows (272 pages)
@@ -4322,47 +4350,50 @@ def _window_bound(cfg, rows, kv_rows, weights_bytes=0, layers=1):
             / _peak("HBM_BYTES_PER_S") * 1e3, rows * row)
 
 
-def _long_decode_layer(cfg, rows, window):
-    """One layer's decode attention at ``rows`` keys (q [1, H, 1, hd] at
-    position rows - 1 over seeded K/V [1, KV, rows, hd]) with the window
-    and without: the kernel against its plain version (phase 2's
-    tolerances; the plain version's GQA expansion is 5 x 4.29 GB, so it
-    runs here, with no model on the card), kernel, plain and SDPA times
-    (SDPA with the same mask over the whole cache) and the bound."""
+def _long_attention(h, kvh, hd, rows, kv_len, windows, seed):
+    """Decode attention at long spans: q [B, H, 1, hd] at each batch row's
+    last valid position over seeded K/V [B, KV, rows, hd] (``kv_len``
+    valid rows each), once per window of ``windows``: the kernel against
+    its plain version (phase 2's tolerances), kernel, plain and SDPA times
+    (SDPA with the same mask over the whole cache), the bound, and the
+    launch's CTAs, scratch bytes and peak allocated memory."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash
     from repro_torch.kernels.flash import valid_mask
     dev = torch.device("cuda")
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    gen = torch.Generator(device=dev).manual_seed(40)
-    q = torch.randn(1, h, 1, hd, device=dev, generator=gen)
-    k = torch.randn(1, kvh, rows, hd, device=dev, generator=gen)
-    v = torch.randn(1, kvh, rows, hd, device=dev, generator=gen)
-    kv_len = torch.tensor([rows], dtype=torch.int32, device=dev)
-    qpos = torch.tensor([[rows - 1]], dtype=torch.int32, device=dev)
+    b = len(kv_len)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, 1, hd, device=dev, generator=gen)
+    k = torch.randn(b, kvh, rows, hd, device=dev, generator=gen)
+    v = torch.randn(b, kvh, rows, hd, device=dev, generator=gen)
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    qpos = (kvl - 1)[:, None].contiguous()
     out, ok = [], True
-    for w in (window, 0):
+    for w in windows:
         def run(w=w):
-            return flash.flash_attention_lse(q, k, v, kv_len, qpos, window=w)
+            return flash.flash_attention_lse(q, k, v, kvl, qpos, window=w)
 
         def plain(w=w):
             return flash.flash_attention_lse_plain(
-                q, k, v, kv_len, qpos, scale=hd ** -0.5, window=w)
-        valid = valid_mask(1, 1, rows, kv_len, qpos, False, w, dev)
+                q, k, v, kvl, qpos, scale=hd ** -0.5, window=w)
+        valid = valid_mask(b, 1, rows, kvl, qpos, False, w, dev)
 
         def library(mask=valid[:, None]):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
+        torch.cuda.reset_peak_memory_stats()
         got = run()
         torch.cuda.synchronize()
+        plan = _flash_plan(torch, q, k, False)
         err_o, err_m, err_l = _errors(got, plain())
         good = (err_o <= TOL_O_ABS and err_m <= TOL_M_REL
                 and err_l <= TOL_L_REL)
         ok = ok and good
-        bound_ms, bound_by = _bound(valid, 1, h, kvh, 1, hd, 8)
+        bound_ms, bound_by = _bound(valid, b, h, kvh, 1, hd, 8 * b)
         k_ms, k_eager = cuda_ms(run, batches=11, per_batch=5)
-        out.append({"window": w, "rows": rows,
+        out.append({"window": w, "rows": rows, "batch": b,
+                    "kv_len": list(kv_len),
                     "attended_rows": int(valid.sum()), "ok": good,
                     "max_abs_err": err_o, "m_rel_err": err_m,
                     "l_rel_err": err_l, "kernel_ms": k_ms,
@@ -4373,10 +4404,20 @@ def _long_decode_layer(cfg, rows, window):
                                             per_batch=1),
                     "library": "SDPA (enable_gqa) with the mask over the "
                                "whole cache",
-                    "bound_ms": bound_ms, "bound_by": bound_by})
+                    "bound_ms": bound_ms, "bound_by": bound_by, **plan})
     del q, k, v
     _free()
     return ok, out
+
+
+def _long_decode_layer(cfg, rows, window):
+    """One layer's decode attention at ``rows`` keys (q [1, H, 1, hd] at
+    position rows - 1 over seeded K/V [1, KV, rows, hd]) with the window
+    and without (``_long_attention``; the plain version's GQA expansion is
+    5 x 4.29 GB, so it runs here, with no model on the card)."""
+    return _long_attention(cfg.num_heads, cfg.num_kv_heads,
+                           cfg.resolved_head_dim, rows, [rows],
+                           (window, 0), 40)
 
 
 def _window_paged(cache, window, page):
@@ -4670,6 +4711,9 @@ def phase_window(state):
     window = specs.window_override(full, long)
     rows = long.seq_len
     layer_ok, layer = _long_decode_layer(full, rows, window)
+    span_ok, span = _long_attention(full.num_heads, full.num_kv_heads,
+                                    full.resolved_head_dim, DECODE_32K_ROWS,
+                                    DECODE_32K_KV_LEN, (0,), 42)
     cfg, dcfg = _family_cfgs(WINDOW_ARCH)
     target = ModelBundle(tf.init_model(cfg, seed=0, device="cuda"),
                          window_override=window)
@@ -4680,14 +4724,15 @@ def phase_window(state):
         cfg, window, PipeDecConfig(n_stages=8, width=8,
                                    branch=4).tree_buffer_capacity)
     serve_ok, serve = _window_serving(target, draft, window)
-    ok = (window == 4096 and layer_ok and decode_ok and tree_ok
+    ok = (window == 4096 and layer_ok and span_ok and decode_ok and tree_ok
           and serve_ok)
     emit({"phase": "window", "ok": ok, "target": cfg.name,
           "draft": dcfg.name, "shape": dataclasses.asdict(long),
           "window_override": window,
           "reduced": {"target_layers": f"{cfg.num_layers} of "
                       f"{full.num_layers}"},
-          "long_decode_layer": layer, "long_decode": decode,
+          "long_decode_layer": layer, "decode_32k_span": span[0],
+          "long_decode": decode,
           "tree_verify": tree, "serving": serve,
           "seconds": time.perf_counter() - t0})
     del target, draft

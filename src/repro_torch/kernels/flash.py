@@ -23,14 +23,23 @@ views of the ``[B,L,KV]`` scale caches, like K/V.
 What bounds the kernel on an H100: bytes, and at the main path's sizes
 (B = 1, a few hundred keys) launch latency and one CTA's serial chain.
 The kernel (``csrc/flash_attention_lse.cu``) runs QK^T and PV on the
-tensor cores in 3xTF32, and splits the key range into chunks of
-``chunk_keys(hd)`` logical positions, one CTA each (flash-decoding); the
-last CTA of a query tile merges the chunks' (acc, m, l) in chunk order
-(``merge_chunks`` is the same arithmetic in plain PyTorch).  The plan
-(``chunk_plan``) depends on head_dim and on the batch row's own bounds
-only, so a row's bits do not depend on B or on other rows, and the paged
-mode follows the same plan.  One launch per call; the wrapper keeps the
-partials buffer and the per-tile counters on the card.
+tensor cores in 3xTF32 and splits the key range into absolute chunks of
+``chunk_keys(hd)`` logical positions, and the chunks into absolute groups
+of ``group_chunks(hd, int8)`` chunks (4096 keys).  A query tile computes
+the chunks ``chunk_plan`` gives it.  Up to one group of chunks in the
+cache each chunk has a CTA of its own; past it a grid row holds
+``max(G, cta_cap(...))`` CTAs (``grid_x``), a bound set by the card and
+not by the cache length, and CTA x computes the tile's slots x,
+x + grid.x, ... (``cta_slots``).  Each chunk's (acc, m, l) goes to the scratch; the last
+CTA to finish a chunk of a group merges the group's chunks in chunk order
+(``merge_chunks``'s arithmetic), and a tile spanning several groups then
+merges the groups' partials in group order (``merge_groups`` is both
+levels in plain PyTorch).  A tile within one group gives the
+single-level merge's bits.  The plan depends on head_dim and on the batch
+row's own bounds only, so a row's bits do not depend on B, on other rows
+or on which CTA computed a chunk, and the paged mode follows the same
+plan.  One launch per call; the wrapper keeps the partials, strided by
+the tile's own rows (``scratch_sizes``), and the counters on the card.
 
 Dispatch: a CPU tensor goes to ``flash_attention_lse_plain``; a CUDA
 tensor goes to the kernel, or the wrapper raises.  ``launches`` and
@@ -58,6 +67,10 @@ MIN_L = 1e-30
 ROWS = 64
 # keys per shared-memory tile of the kernel
 TILE = 32
+# logical keys per group of chunks, and the waves of resident CTAs a
+# grid row spreads over its tiles (``kGroupKeys``, ``kWaves`` in the source)
+GROUP_KEYS = 4096
+WAVES = 2
 # the widest head the attention kernels take: instances for head_dim 64,
 # 128 and 256 (Gemma), each serving every head_dim up to its own
 MAX_HEAD_DIM = 256
@@ -125,17 +138,104 @@ def merge_chunks(parts):
     return acc / l.clamp_min(MIN_L)[..., None], mx, l
 
 
-def scratch_for(device, b, kvh, n, rep, length, hd):
-    """The kernel's scratch for one call: partials for every chunk of
-    every (batch row, KV head, query tile), and one counter each."""
+def group_chunks(hd: int, int8: bool = False) -> int:
+    """Chunks per group of the kernel's plan (``group_chunks`` in the
+    source): 4096 keys, a function of head_dim alone.  ``int8`` is there
+    because a group's merge staging has to fit either dtype's shared
+    memory; at 4096 keys it fits both at 64 rows, so both take the same
+    G."""
+    del int8
+    return GROUP_KEYS // chunk_keys(hd)
+
+
+def cta_cap(tiles: int, per_sm: int, sms: int) -> int:
+    """CTAs a grid row may hold: ``WAVES`` waves of the ``per_sm * sms``
+    CTAs the card keeps resident, spread over ``tiles`` (batch rows x KV
+    heads x query tiles)."""
+    return max(1, WAVES * per_sm * sms // tiles)
+
+
+def grid_x(hd, length, tiles, per_sm, sms) -> int:
+    """The kernel's grid.x: one CTA per chunk of ``length`` up to one
+    group, at most ``max(G, cta_cap)``."""
+    chunks = max(1, -(-length // chunk_keys(hd)))
+    return min(chunks, max(group_chunks(hd), cta_cap(tiles, per_sm, sms)))
+
+
+def cta_slots(plan, gx: int):
+    """Which CTA of a grid row of ``gx`` CTAs computes which chunk: for
+    each tile of ``plan`` (``chunk_plan``'s ``[[(c_lo, c_hi), ...]
+    per row]``), CTA x computes the chunks c_lo + x, c_lo + x + gx, ...
+    below c_hi.  Returns ``[[[chunks of CTA x] for x < gx] per tile] per
+    row]``."""
+    return [[[list(range(c_lo + x, c_hi, gx)) for x in range(gx)]
+             for c_lo, c_hi in tiles] for tiles in plan]
+
+
+def _group_partial(parts):
+    """``merge_chunks``'s sums without the division: (acc, M, l)."""
+    mx = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mx = torch.maximum(mx, m)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for a, m, lc in parts:
+        w = torch.exp(m - mx)
+        l = l + lc * w
+        acc = acc + a * w[..., None]
+    return acc, mx, l
+
+
+def merge_groups(parts, c_lo: int, g: int):
+    """The kernel's two-level merge of chunk partials ``[(acc, m, l),
+    ...]`` of the chunks c_lo, c_lo + 1, ...: within one group of ``g``
+    chunks, ``merge_chunks``; else each group's chunks in chunk order
+    into an unnormalised (acc, M, l), then the groups in group order
+    (``merge_chunks`` over the group partials).  Returns (o, m, l)."""
+    groups = {}
+    for i, part in enumerate(parts):
+        groups.setdefault((c_lo + i) // g, []).append(part)
+    if len(groups) == 1:
+        return merge_chunks(parts)
+    return merge_chunks([_group_partial(groups[k]) for k in sorted(groups)])
+
+
+def scratch_sizes(b, kvh, n, rep, length, hd):
+    """(floats, ints) of the kernel's scratch for one call: for every
+    (batch row, KV head, query tile), a partial per chunk of ``length``
+    and per group, each min(bq, n) * rep rows of (hd + 2) floats rounded
+    up to whole 16-byte vectors; a counter per group and one per tile.
+    (0, 0) when ``length`` is one chunk (the kernel writes o directly)."""
     bq = queries_per_cta(rep)
-    groups = b * kvh * -(-n // bq)
+    tiles = b * kvh * -(-n // bq)
     chunks = max(1, -(-length // chunk_keys(hd)))
     if chunks == 1:
+        return 0, 0
+    groups = -(-chunks // group_chunks(hd))
+    pstride = -(-(min(bq, n) * rep * (hd + 2)) // 4) * 4
+    return tiles * (chunks + groups) * pstride, tiles * (groups + 1)
+
+
+def scratch_for(device, b, kvh, n, rep, length, hd):
+    """The kernel's scratch for one call (``scratch_sizes``): pointers to
+    the partials and the counters, or (None, None)."""
+    floats, ints = scratch_sizes(b, kvh, n, rep, length, hd)
+    if not floats:
         return None, None
-    work, count = build.scratch("flash_attention_lse", device,
-                                groups * chunks * ROWS * (hd + 2), groups)
+    work, count = build.scratch("flash_attention_lse", device, floats, ints)
     return work.data_ptr(), count.data_ptr()
+
+
+def launch_grid(b, h, kvh, n, length, hd, *, int8=False, paged=False):
+    """The grid (x, y, z) a launch of these sizes takes on the current
+    card (the kernel library's own rule): x times y times z CTAs."""
+    fn = build.launcher("flash_attention_lse", [_I32] * 9 + [_P],
+                        symbol="flash_attention_lse_grid")
+    out = (ctypes.c_int * 3)()
+    build.check("flash_attention_lse_grid",
+                fn(int(paged), b, h, kvh, n, length, hd,
+                   queries_per_cta(h // kvh), int(int8), out))
+    return tuple(out)
 
 
 def rows_i32(x, b: int, device) -> torch.Tensor:
